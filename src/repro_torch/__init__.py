@@ -1,0 +1,21 @@
+"""GraphMP in PyTorch: the same system as the ``repro`` package (its JAX
+reference), with the SpMV hot loop in hand-written CUDA kernels for Hopper.
+
+    from repro_torch import GraphSession, preprocess_graph, write_edge_list
+
+    write_edge_list(edges_dir, [(src, dst)])
+    preprocess_graph(edges_dir, graph_dir)
+    with GraphSession(graph_dir) as s:          # device="cuda" by default
+        pr = s.run("pagerank", max_iters=30)
+
+This package imports torch and numpy, never jax and nothing of ``repro``;
+both packages read and write the same preprocessed stores and checkpoints.
+"""
+from repro_torch.core.apps import (VertexProgram, available_apps,  # noqa: F401
+                                   get_app, register_app)
+from repro_torch.core.engine import (EngineConfig, IterationStats,  # noqa: F401
+                                     RunResult, VSWEngine)
+from repro_torch.graph.generate import materialize, rmat_edges  # noqa: F401
+from repro_torch.graph.preprocess import preprocess_graph  # noqa: F401
+from repro_torch.graph.storage import GraphStore, write_edge_list  # noqa: F401
+from repro_torch.session import GraphSession  # noqa: F401
