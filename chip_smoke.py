@@ -12,17 +12,29 @@ Run from the root of the repository, on a machine with a CUDA GPU and
 2. data    — Graph500 RMAT (a, b, c = .57, .19, .19, seed 0) written as an
    edge list and preprocessed with ``preprocess_graph``'s defaults into a
    temporary directory;
-3. kernels — on every shard of the store, both kernels against their plain
-   torch versions for all 5 semirings x {float32, float16, int8} edge
-   values; then each kernel timed over one sweep of the store (every shard
-   once) — its device time from torch.profiler, CUDA-event time beside it —
-   next to its byte bound, its plain version and one PyTorch library call
-   computing the same function;
+3. kernels — on every shard of the store, the four kernels against their
+   plain torch versions for all 5 semirings x {float32, float16, int8} edge
+   values: the single-column ones (K = 1) and the batched ones at
+   K = ``BATCH_K`` (16), plus K = 3 and 64 on the first shards; then each
+   kernel timed over one sweep of the store (every shard once) — its device
+   time from torch.profiler, CUDA-event time beside it — next to its byte
+   bound, its plain version and one PyTorch library call computing the same
+   function;
 4. main path — ``GraphSession(store)`` (device "cuda") runs pagerank, sssp,
    bfs and cc through the fused kernel, through the gather + fold kernel,
    and with ``use_kernel=False``; bfs again at prefetch depth 2.  Exact apps
    must agree bitwise, PageRank to ``PR_RTOL``; each kernel's launch count
-   must equal the shards its runs processed.
+   must equal the shards its runs processed;
+5. batched path — ``run_batch`` of sssp, bfs and ppr at K = 16 through the
+   fused kernel, the gather + fold kernel and the plain version: exact apps
+   bitwise, ppr to ``PPR_RTOL``, four columns of each exact app equal to
+   solo ``run``s, launches equal to the shards processed;
+6. service — ``session.service(max_batch=16)`` answers the 16 bfs, 16
+   sssp and 16 ppr queries of phase 5 submitted from 8 client threads, two
+   runners sweeping at once (ppr has an engine of its own); every sssp/bfs
+   answer must equal its ``run_batch`` column bitwise, ppr to
+   ``PPR_RTOL``, and the kernels' launches must equal the shards the
+   service's sweeps processed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -48,12 +60,20 @@ DTYPES = ("float32", "float16", "int8")
 # plus semirings: a row folds <= 512 positive float32 terms in another order
 PLUS_RTOL = 3.1e-5
 # PageRank: float32 sums in another order per iteration (hub rows wrap over
-# many ELL rows, combined by atomics), damped by 1 / (1 - 0.85) over the run
+# many ELL rows, combined by atomics), damped by 1 / (1 - 0.85) over the run;
+# personalized PageRank sums the same terms per column, so the same bound
 PR_RTOL = 5e-4
+PPR_RTOL = PR_RTOL
 CACHE_BUDGET = 16 << 30        # holds the decoded scale-22 store in host RAM
+BATCH_K = 16                   # GraphService's default max_batch
+EXTRA_KS = (3, 64)             # also checked, on the first EXTRA_SHARDS
+EXTRA_SHARDS = 3
 KERNEL_SOURCE = "src/repro_torch/kernels/spmv/csrc/ell_spmv.cu"
+# the Pallas entry each kernel replaces (B1 serves K = 1 and K > 1)
 REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
-            "ell_fold": "src/repro/kernels/spmv/spmv.py:172"}
+            "ell_fold": "src/repro/kernels/spmv/spmv.py:172",
+            "ell_spmv_fused_batch": "src/repro/kernels/spmv/spmv.py:328",
+            "ell_fold_batch": "src/repro/kernels/spmv/spmv.py:221"}
 
 
 def log(msg: str) -> None:
@@ -108,7 +128,7 @@ def _compare(torch, got, want, plus: bool) -> tuple[bool, float]:
 
 
 def phase_kernels(torch, store, dev):
-    """Hold both kernels against their plain versions on every shard, then
+    """Hold the kernels against their plain versions on every shard, then
     time them over one sweep of the store.  Returns the kernel records."""
     import numpy as np
 
@@ -117,13 +137,30 @@ def phase_kernels(torch, store, dev):
 
     n = store.num_vertices
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand(n, generator=gen, device=dev)
-    x_inf = x.clone()  # min/max semirings also see unreached (inf) sources
-    x_inf[torch.rand(n, generator=gen, device=dev) < 0.2] = float("inf")
+
+    def frontier(*shape):
+        """(x, x with 20% unreached = inf): min/max semirings see both."""
+        x = torch.rand(*shape, generator=gen, device=dev)
+        x_inf = x.clone()
+        x_inf[torch.rand(*shape, generator=gen, device=dev) < 0.2] = \
+            float("inf")
+        return x, x_inf
+
+    x, x_inf = frontier(n)
+    batch_x = {k: frontier(n, k) for k in (BATCH_K,) + EXTRA_KS}
     rng = np.random.default_rng(0)
-    err = {"ell_spmv_fused": 0.0, "ell_fold": 0.0}
-    resident = []   # per shard: what the timing sweep needs
+    err = {name: 0.0 for name in REPLACES}
+    resident = []   # per shard: what the timing sweeps need
     checks = 0
+
+    def hold(name, got, want, plus, what):
+        nonlocal checks
+        ok, e = _compare(torch, got, want, plus)
+        err[name] = max(err[name], e)
+        check(ok, f"{name} disagrees with its plain version on {what}: "
+                  f"max abs err {e}")
+        checks += 1
+
     t0 = time.perf_counter()
     for p in range(store.num_shards):
         ell = store.read_shard(p)
@@ -145,28 +182,47 @@ def phase_kernels(torch, store, dev):
                 xs = x if plus else x_inf
                 g = xg[not plus]
                 want = ref.ell_fold_ref(g, deq, cols, sem)
-                for name, got in (
-                        ("ell_spmv_fused",
-                         cuda.ell_spmv_fused(xs, cols, vals, sem, qp)),
-                        ("ell_fold", cuda.ell_fold(g, vals, cols, sem, qp))):
-                    ok, e = _compare(torch, got, want, plus)
-                    err[name] = max(err[name], e)
-                    check(ok, f"{name} disagrees with its plain version on "
-                              f"shard {p} ({sem}, {dtype}): max abs err {e}")
-                    checks += 1
+                what = f"shard {p} ({sem}, {dtype})"
+                hold("ell_spmv_fused",
+                     cuda.ell_spmv_fused(xs, cols, vals, sem, qp), want,
+                     plus, what)
+                hold("ell_fold", cuda.ell_fold(g, vals, cols, sem, qp),
+                     want, plus, what)
+        ks = (BATCH_K,) + (EXTRA_KS if p < EXTRA_SHARDS else ())
+        for k in ks:
+            xk = batch_x[k]
+            xgk = (ref.gather(xk[0], cols), ref.gather(xk[1], cols))
+            for dtype in DTYPES:
+                vals, qp = quantized[dtype]
+                deq = ref.maybe_dequantize(vals, qp)
+                for sem in SEMIS:
+                    plus = sem.startswith("plus")
+                    xs, g = xk[not plus], xgk[not plus]
+                    want = ref.ell_fold_batch_ref(g, deq, cols, sem)
+                    what = f"shard {p} ({sem}, {dtype}, K={k})"
+                    hold("ell_spmv_fused_batch",
+                         cuda.ell_spmv_fused_batch(xs, cols, vals, sem, qp),
+                         want, plus, what)
+                    hold("ell_fold_batch",
+                         cuda.ell_fold_batch(g, vals, cols, sem, qp), want,
+                         plus, what)
+            del xgk
         unit = torch.from_numpy(ell.vals).to(dev)  # the store's own vals
         resident.append(dict(
             cols=cols, unit=unit, xg=xg[False], rows=ell.shape[0],
-            slots=ell.shape[0] * ell.shape[1],
+            slots=ell.shape[0] * ell.shape[1], valid=int(mask.sum()),
             distinct=int(torch.unique(cols[cols >= 0]).numel()),
             float32=(unit, (1.0, 0.0)), float16=quantized["float16"],
             int8=quantized["int8"]))
     torch.cuda.synchronize()
     log(f"kernels: {checks} checks against the plain versions on "
         f"{store.num_shards} shards x {len(SEMIS)} semirings x "
-        f"{len(DTYPES)} dtypes passed in {time.perf_counter() - t0:.1f}s; "
-        f"max abs err {err}")
-    return time_kernels(torch, resident, x, n, err)
+        f"{len(DTYPES)} dtypes (K = 1 and {BATCH_K} on every shard, K = "
+        f"{EXTRA_KS} on {EXTRA_SHARDS}) passed in "
+        f"{time.perf_counter() - t0:.1f}s; max abs err {err}")
+    x16 = batch_x[BATCH_K][0]
+    del batch_x
+    return time_kernels(torch, resident, x, x16, n, err)
 
 
 def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
@@ -206,38 +262,83 @@ def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
     return device_us / 1e3 / reps, events_ms
 
 
-def time_kernels(torch, resident, x, n, err):
+def _paired(torch, calls, plain, lib) -> dict:
+    """Plain, kernel, kernel, plain (compare within one call, in turns),
+    then the library call: device ms and events ms of one pass each."""
+    (p1, p1e), (k1, k1e) = _time_sweep(torch, plain), \
+        _time_sweep(torch, calls)
+    (k2, k2e), (p2, p2e) = _time_sweep(torch, calls), \
+        _time_sweep(torch, plain)
+    lib_ms, lib_e = _time_sweep(torch, lib)
+    return dict(k1=k1, k1e=k1e, k2=k2, k2e=k2e, p1=p1, p1e=p1e, p2=p2,
+                p2e=p2e, lib=lib_ms, libe=lib_e)
+
+
+def _csr(torch, s, n):
+    """The shard as a CSR sparse tensor with its unit values at the valid
+    slots.  ELL rows hold duplicate, unsorted columns: valid input for a
+    sparse product, though not a canonical CSR, so the invariant check is
+    off."""
+    valid = s["cols"] >= 0
+    crow = torch.zeros(s["rows"] + 1, dtype=torch.int64,
+                       device=s["cols"].device)
+    crow[1:] = valid.sum(1).cumsum(0)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            crow, s["cols"][valid].long(), s["unit"][valid],
+            size=(s["rows"], n), check_invariants=False)
+
+
+def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
+    """Least bytes one call on shard ``s`` moves: each input read once, the
+    output written once.  cols (4 B a slot), the edge values (``val_bytes``
+    a slot; the *_src semirings never read them), the sources — the
+    frontier's rows at the shard's distinct source vertices (fused), every
+    slot of the gathered ``xg`` (ell_fold, which reads it whole), or ``xg``
+    at the valid slots only (ell_fold_batch reads no source for a padding
+    slot) — and the [R, k] float32 partials."""
+    edges = s["slots"] * (4 + val_bytes)
+    if name.startswith("ell_spmv_fused"):
+        src = 4 * k * s["distinct"]
+    elif name == "ell_fold":
+        src = 4 * s["slots"]
+    else:
+        src = 4 * k * s["valid"]
+    return edges + src + 4 * k * s["rows"]
+
+
+def time_kernels(torch, resident, x, x16, n, err):
     from repro_torch.kernels.spmv import cuda, ref
 
     sem = "plus_src"  # PageRank's semiring, over the store's float32 vals
-    fused = [lambda s=s: cuda.ell_spmv_fused(x, s["cols"], s["unit"], sem)
-             for s in resident]
-    fused_plain = [lambda s=s: ref.ell_fold_ref(ref.gather(x, s["cols"]),
-                                                s["unit"], s["cols"], sem)
-                   for s in resident]
-    fold = [lambda s=s: cuda.ell_fold(s["xg"], s["unit"], s["cols"], sem)
-            for s in resident]
-    fold_plain = [lambda s=s: ref.ell_fold_ref(s["xg"], s["unit"], s["cols"],
-                                               sem) for s in resident]
-    # one library call per shard computing the same function: a CSR sparse
-    # product (unit values at the valid slots) for the fused kernel, and a
-    # row-wise dot product with the unit vals (0 at sentinels) for the fold
-    csrs = []
-    for s in resident:
-        valid = s["cols"] >= 0
-        crow = torch.zeros(s["rows"] + 1, dtype=torch.int64, device=x.device)
-        crow[1:] = valid.sum(1).cumsum(0)
-        # ELL rows hold duplicate, unsorted columns: valid input for a sparse
-        # product, though not a canonical CSR, so the invariant check is off
-        with warnings.catch_warnings():  # "sparse CSR support is in beta"
-            warnings.simplefilter("ignore", UserWarning)
-            csrs.append(torch.sparse_csr_tensor(
-                crow, s["cols"][valid].long(), s["unit"][valid],
-                size=(s["rows"], n), check_invariants=False))
+    csrs = [_csr(torch, s, n) for s in resident]
     xcol = x[:, None]
-    lib_fused = [lambda c=c: torch.sparse.mm(c, xcol) for c in csrs]
-    lib_fold = [lambda s=s: torch.linalg.vecdot(s["unit"], s["xg"])
-                for s in resident]
+    sweeps = {
+        "ell_spmv_fused": (
+            [lambda s=s: cuda.ell_spmv_fused(x, s["cols"], s["unit"], sem)
+             for s in resident],
+            [lambda s=s: ref.ell_fold_ref(ref.gather(x, s["cols"]),
+                                          s["unit"], s["cols"], sem)
+             for s in resident],
+            # a CSR sparse product
+            [lambda c=c: torch.sparse.mm(c, xcol) for c in csrs]),
+        "ell_fold": (
+            [lambda s=s: cuda.ell_fold(s["xg"], s["unit"], s["cols"], sem)
+             for s in resident],
+            [lambda s=s: ref.ell_fold_ref(s["xg"], s["unit"], s["cols"], sem)
+             for s in resident],
+            # a row-wise dot product with the unit vals (0 at sentinels)
+            [lambda s=s: torch.linalg.vecdot(s["unit"], s["xg"])
+             for s in resident]),
+        "ell_spmv_fused_batch": (
+            [lambda s=s: cuda.ell_spmv_fused_batch(x16, s["cols"], s["unit"],
+                                                   sem) for s in resident],
+            [lambda s=s: ref.ell_fold_batch_ref(ref.gather(x16, s["cols"]),
+                                                s["unit"], s["cols"], sem)
+             for s in resident],
+            [lambda c=c: torch.sparse.mm(c, x16) for c in csrs]),
+    }
     # the library calls must compute what the kernels compute
     s0 = resident[0]
     k0 = cuda.ell_spmv_fused(x, s0["cols"], s0["unit"], sem)
@@ -246,60 +347,89 @@ def time_kernels(torch, resident, x, n, err):
     check(torch.allclose(torch.linalg.vecdot(s0["unit"], s0["xg"])[:, None],
                          k0, rtol=PLUS_RTOL, atol=0),
           "vecdot differs from ell_fold")
+    k0 = cuda.ell_spmv_fused_batch(x16, s0["cols"], s0["unit"], sem)
+    check(torch.allclose(torch.sparse.mm(csrs[0], x16), k0, rtol=PLUS_RTOL,
+                         atol=0), "sparse.mm differs from ell_spmv_fused_batch")
+    xg16 = ref.gather(x16, s0["cols"])
+    check(torch.allclose(torch.einsum("rw,rwk->rk", s0["unit"], xg16), k0,
+                         rtol=PLUS_RTOL, atol=0),
+          "einsum differs from ell_fold_batch")
+    del xg16
+    times = {name: _paired(torch, *calls) for name, calls in sweeps.items()}
+    del sweeps
+    # ell_fold_batch: the gathered [R, W, 16] of all shards would not fit on
+    # the card (0.69e9 slots x 64 B at scale 22), so gather a chunk of
+    # shards outside the timed region, time the chunk, and sum the chunks
+    totals = dict.fromkeys(("k1", "k1e", "k2", "k2e", "p1", "p1e", "p2",
+                            "p2e", "lib", "libe"), 0.0)
+    chunk: list = []
 
-    rows = sum(s["rows"] for s in resident)
-    slots = sum(s["slots"] for s in resident)
-    distinct = sum(s["distinct"] for s in resident)
+    def flush():
+        xgs = [ref.gather(x16, s["cols"]) for s in chunk]
+        part = _paired(
+            torch,
+            [lambda s=s, g=g: cuda.ell_fold_batch(g, s["unit"], s["cols"],
+                                                  sem)
+             for s, g in zip(chunk, xgs)],
+            [lambda s=s, g=g: ref.ell_fold_batch_ref(g, s["unit"],
+                                                     s["cols"], sem)
+             for s, g in zip(chunk, xgs)],
+            # plus_times over the unit vals (0 at sentinels) = plus_src
+            [lambda s=s, g=g: torch.einsum("rw,rwk->rk", s["unit"], g)
+             for s, g in zip(chunk, xgs)])
+        for key in totals:
+            totals[key] += part[key]
+        chunk.clear()
 
-    def bound_bytes(name: str, val_bytes: int) -> int:
-        """Each input read once, the output written once: cols, the edge
-        values (``val_bytes`` per slot; the *_src semirings never read
-        them), the frontier at this store's distinct sources (fused) or the
-        gathered xg (fold), and [R] float32 partials."""
-        src = 4 * distinct if name == "ell_spmv_fused" else 4 * slots
-        return slots * (4 + val_bytes) + src + 4 * rows
+    for s in resident:
+        chunk.append(s)
+        if sum(c["slots"] for c in chunk) * 4 * BATCH_K > 12e9:
+            flush()
+    if chunk:
+        flush()
+    times["ell_fold_batch"] = totals
 
     records = {}
-    for name, calls, plain, lib in (
-            ("ell_spmv_fused", fused, fused_plain, lib_fused),
-            ("ell_fold", fold, fold_plain, lib_fold)):
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        (p1, p1e), (k1, k1e) = _time_sweep(torch, plain), \
-            _time_sweep(torch, calls)
-        (k2, k2e), (p2, p2e) = _time_sweep(torch, calls), \
-            _time_sweep(torch, plain)
-        lib_ms, lib_e = _time_sweep(torch, lib)
-        nbytes = bound_bytes(name, 0)
+    for name, t in times.items():
+        k = BATCH_K if name.endswith("_batch") else 1
+        nbytes = sum(bound_bytes(name, s, 0, k) for s in resident)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = min(k1, k2)
+        ms = min(t["k1"], t["k2"])
         records[name] = dict(
             name=name, route="cuda", source=KERNEL_SOURCE,
             replaces=REPLACES[name], launches=None,
-            max_abs_err=err[name], ms=ms, plain_ms=min(p1, p2),
-            bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
-        log(f"timing: {name} {sem} float32, one sweep = {len(calls)} "
-            f"launches, device ms (events ms): kernel {k1:.4f} ({k1e:.4f})"
-            f" / {k2:.4f} ({k2e:.4f}), plain {p1:.4f} ({p1e:.4f}) / "
-            f"{p2:.4f} ({p2e:.4f}), library {lib_ms:.4f} ({lib_e:.4f}); "
-            f"bound {bound:.4f} ms ({nbytes} bytes at 3.35 TB/s); "
-            f"{nbytes / ms / 1e9:.2f} TB/s")
+            max_abs_err=err[name], ms=ms, plain_ms=min(t["p1"], t["p2"]),
+            bound_ms=bound, bound_by="bytes", library_ms=t["lib"])
+        log(f"timing: {name} K={k} {sem} float32, one sweep = "
+            f"{len(resident)} launches, device ms (events ms): kernel "
+            f"{t['k1']:.4f} ({t['k1e']:.4f}) / {t['k2']:.4f} "
+            f"({t['k2e']:.4f}), plain {t['p1']:.4f} ({t['p1e']:.4f}) / "
+            f"{t['p2']:.4f} ({t['p2e']:.4f}), library {t['lib']:.4f} "
+            f"({t['libe']:.4f}); bound {bound:.4f} ms ({nbytes} bytes at "
+            f"3.35 TB/s); {nbytes / ms / 1e9:.2f} TB/s")
     # SSSP/BFS's semiring reads the edge values: the store's float32 unit
     # values, and the float16/int8 ones a weighted store would hold
     sem = "min_plus"
     for dtype, val_bytes in (("float32", 4), ("float16", 2), ("int8", 1)):
-        for name in ("ell_spmv_fused", "ell_fold"):
+        for name in ("ell_spmv_fused", "ell_fold", "ell_spmv_fused_batch"):
             if name == "ell_spmv_fused":
                 calls = [lambda s=s: cuda.ell_spmv_fused(
                     x, s["cols"], s[dtype][0], sem, s[dtype][1])
                     for s in resident]
-            else:
+            elif name == "ell_fold":
                 calls = [lambda s=s: cuda.ell_fold(
                     s["xg"], s[dtype][0], s["cols"], sem, s[dtype][1])
                     for s in resident]
+            else:
+                calls = [lambda s=s: cuda.ell_spmv_fused_batch(
+                    x16, s["cols"], s[dtype][0], sem, s[dtype][1])
+                    for s in resident]
             ms, ev = _time_sweep(torch, calls)
-            nbytes = bound_bytes(name, val_bytes)
-            log(f"timing: {name} {sem} {dtype} vals, one sweep: kernel "
-                f"{ms:.4f} ms device ({ev:.4f} events), bound "
+            k = BATCH_K if name.endswith("_batch") else 1
+            nbytes = sum(bound_bytes(name, s, val_bytes, k)
+                         for s in resident)
+            log(f"timing: {name} K={k} {sem} {dtype} vals, one sweep: "
+                f"kernel {ms:.4f} ms device ({ev:.4f} events), bound "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
                 f"{nbytes / ms / 1e9:.2f} TB/s")
     return records
@@ -309,7 +439,7 @@ def time_kernels(torch, resident, x, n, err):
 def phase_main_path(torch, store_path: str):
     """One GraphSession on the card: the four apps through each kernel and
     through the plain version; bfs at prefetch 0 and 2.  Returns the launch
-    counts of the run."""
+    counts of the run and its results by (variant, app)."""
     import numpy as np
 
     from repro_torch.kernels.spmv import cuda
@@ -359,7 +489,10 @@ def phase_main_path(torch, store_path: str):
                       f"{variant} {app}: bad values")
                 results[variant, app] = r
         launches = dict(cuda.launches)
-        profile_bfs(torch, s, base, results["fused", "bfs"].values)
+        r = profile_run(torch, "bfs",
+                        lambda: s.run("bfs", config=base, source=0))
+        check(np.array_equal(r.values, results["fused", "bfs"].values),
+              "bfs under torch.profiler differs from the main path's bfs")
     for name, want in shards_by_kernel.items():
         check(launches[name] == want and want > 0,
               f"{name}: {launches[name]} launches on the main path, "
@@ -386,15 +519,14 @@ def phase_main_path(torch, store_path: str):
     reached = np.isfinite(results["fused", "bfs"].values).sum()
     log(f"main: all comparisons passed; bfs reached {reached} vertices; "
         f"launches {launches}")
-    return launches
+    return launches, results
 
 
-def profile_bfs(torch, session, cfg, want) -> None:
-    """One more bfs run (warm cache, prefetch depth 0) under torch.profiler:
-    the device's busy share of the run's wall time and where device time
-    goes.  Its values must equal ``want``; its launches come after the main
-    path's counts were read."""
-    import numpy as np
+def profile_run(torch, label: str, run):
+    """One more run (warm cache, prefetch depth 0) under torch.profiler: the
+    device's busy share of the run's seconds and where device time goes.
+    Returns ``run()``'s result; its launches come after the phase's counts
+    were read."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -402,10 +534,8 @@ def profile_bfs(torch, session, cfg, want) -> None:
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            r = session.run("bfs", config=cfg, source=0)
+            r = run()
             torch.cuda.synchronize()
-    check(np.array_equal(r.values, want),
-          "bfs under torch.profiler differs from the main path's bfs")
     device = [(e.self_device_time_total, e.key, e.count)
               for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")
@@ -413,11 +543,197 @@ def profile_bfs(torch, session, cfg, want) -> None:
     # the run's own iteration seconds (the profiler's start-up is outside
     # them, its per-op overhead inside): the share is a lower bound
     busy = sum(d[0] for d in device) / 1e6
-    log(f"profile: bfs under torch.profiler seconds={r.total_seconds:.3f} "
-        f"device_busy_s={busy:.3f} "
+    log(f"profile: {label} under torch.profiler "
+        f"seconds={r.total_seconds:.3f} device_busy_s={busy:.3f} "
         f"busy_share={busy / r.total_seconds:.3f}")
     for us, key, count in sorted(device, reverse=True)[:6]:
         log(f"profile:   {us / 1e3:10.2f} ms  x{count:<6d} {key[:90]}")
+    return r
+
+
+# --------------------------------------------------------------------------
+def _max_rel_err(np, got, want) -> float:
+    """Largest |got - want| / |want| where the two differ (inf where want
+    is 0 and got is not)."""
+    diff = np.where(got == want, 0.0, np.abs(got - want))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where(diff == 0, 0.0, diff / np.abs(want))
+    return float(rel.max())
+
+
+def phase_batched(torch, store_path: str, solo) -> dict:
+    """The batched path and the service on one warm GraphSession.  ``solo``
+    holds the main path's results (sssp/bfs from source 0).  Returns the
+    launch counts of the run_batch phase."""
+    import numpy as np
+
+    from repro_torch.session import GraphSession
+
+    with GraphSession(store_path, cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        t0 = time.perf_counter()
+        s.warm()
+        log(f"batch: cache warmed in {time.perf_counter() - t0:.1f}s")
+        # vertex 0 (the RMAT hub, slice 1's source) and 15 other vertices
+        # with out-edges, from a fixed seed
+        cand = np.nonzero(s.out_deg > 0)[0]
+        rng = np.random.default_rng(1)
+        sources = [0] + sorted(int(v) for v in rng.choice(
+            cand[cand != 0], BATCH_K - 1, replace=False))
+        launches, cols = run_batch_path(torch, s, sources, solo)
+        profile_run(torch, f"bfs K={BATCH_K}",
+                    lambda: (s.run_batch("bfs", sources=sources),
+                             s.last_batch_result)[1])
+        run_service(torch, s, sources, cols)
+    return launches
+
+
+def run_batch_path(torch, s, sources, solo):
+    """run_batch of sssp, bfs and ppr at K = BATCH_K through the fused
+    kernel, the gather + fold kernel and the plain version."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+
+    runs = [("sssp", {}), ("bfs", {}), ("ppr", dict(max_iters=10))]
+    base = s.config
+    variants = {"fused": base,
+                "gather+fold": base.replace(fused_gather=False),
+                "plain": base.replace(use_kernel=False)}
+    results, cols = {}, {}
+    shards_by_kernel = {"ell_spmv_fused_batch": 0, "ell_fold_batch": 0}
+    cuda.reset_launches()
+    for variant, cfg in variants.items():
+        for app, kw in runs:
+            t0 = time.perf_counter()
+            columns = s.run_batch(app, sources=sources, config=cfg, **kw)
+            wall = time.perf_counter() - t0
+            r = s.last_batch_result
+            shards = sum(h.shards_processed for h in r.history)
+            if cfg.use_kernel is not False:
+                key = ("ell_spmv_fused_batch" if cfg.fused_gather
+                       else "ell_fold_batch")
+                shards_by_kernel[key] += shards
+            fetch = sum(h.fetch_seconds for h in r.history)
+            log(f"batch: {variant:12s} {app:5s} K={r.num_columns} "
+                f"iterations={r.iterations} "
+                f"column_iterations={r.column_iterations.tolist()} "
+                f"seconds={r.total_seconds:.3f} wall_s={wall:.3f} "
+                f"per_query_s={r.total_seconds / r.num_columns:.4f} "
+                f"shards={shards} fetch_s={fetch:.3f}")
+            check(r.values.shape == (s.n, len(sources))
+                  and np.isfinite(r.values).any(),
+                  f"{variant} {app}: bad batched values")
+            results[variant, app] = r
+            cols[variant, app] = columns
+    launches = dict(cuda.launches)
+    for name, want in shards_by_kernel.items():
+        check(launches[name] == want and want > 0,
+              f"{name}: {launches[name]} launches on the batched path, "
+              f"expected one per processed shard ({want})")
+    for app, _ in runs:
+        want = results["plain", app]
+        for variant in ("fused", "gather+fold"):
+            r = results[variant, app]
+            check(r.iterations == want.iterations
+                  and np.array_equal(r.column_iterations,
+                                     want.column_iterations),
+                  f"{variant} {app}: iterations {r.column_iterations} "
+                  f"differ from plain {want.column_iterations}")
+            if app == "ppr":
+                rel = _max_rel_err(np, r.values, want.values)
+                log(f"batch: ppr {variant} vs plain max rel err {rel:.3e} "
+                    f"(rtol {PPR_RTOL})")
+                check(rel <= PPR_RTOL, f"ppr {variant} off by {rel}")
+            else:
+                check(np.array_equal(r.values, want.values),
+                      f"{app} {variant} differs from the plain run")
+    # four columns of each exact app against solo runs: source 0 is the
+    # main path's own run, the next three are run here
+    for app in ("sssp", "bfs"):
+        batch = cols["fused", app]
+        solo_s = solo["fused", app].total_seconds
+        check(np.array_equal(batch[0].values, solo["fused", app].values)
+              and batch[0].iterations == solo["fused", app].iterations,
+              f"{app} column 0 differs from the main path's solo run")
+        for k in (1, 2, 3):
+            r = s.run(app, source=sources[k])
+            check(np.array_equal(batch[k].values, r.values)
+                  and batch[k].iterations == r.iterations,
+                  f"{app} column {k} differs from its solo run")
+        t = results["fused", app].total_seconds
+        log(f"batch: {app} K={len(sources)} fused {t:.3f}s for "
+            f"{len(sources)} queries vs solo {solo_s:.3f}s for one: "
+            f"{len(sources) * solo_s / t:.2f}x the solo queries/s")
+    log(f"batch: all comparisons passed; launches {launches}")
+    return launches, {app: cols["fused", app] for app, _ in runs}
+
+
+def run_service(torch, s, sources, cols) -> None:
+    """The phase-5 bfs, sssp and ppr queries, submitted from 8 client
+    threads to ``s.service(max_batch=16)``; each answer must equal its
+    run_batch column (ppr to PPR_RTOL), and the kernels' launches the
+    shards the sweeps processed."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+
+    queries = [(app, k) for app in ("bfs", "sssp", "ppr")
+               for k in range(len(sources))]
+    kwargs = {"bfs": {}, "sssp": {}, "ppr": dict(max_iters=10)}
+    param = {"bfs": "source", "sssp": "source", "ppr": "seed"}
+    shards = []
+    s.iteration_observers.append(lambda st: shards.append(
+        st.shards_processed))
+    answers, errors = {}, []
+    with s.service(max_batch=BATCH_K, max_wait_ms=50.0, max_inflight=2,
+                   memoize=False) as svc:
+        def client(tid):
+            try:
+                futs = [(i, svc.submit(app, **{param[app]: sources[k]},
+                                       **kwargs[app]))
+                        for i, (app, k) in enumerate(queries)
+                        if i % 8 == tid]
+                for i, f in futs:
+                    answers[i] = f.result(timeout=600)
+            except BaseException as exc:  # noqa: BLE001 — checked below
+                errors.append(exc)
+
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        snap = svc.stats.snapshot()
+    launches = dict(cuda.launches)
+    s.iteration_observers.clear()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"service clients failed: {errors}")
+    ppr_err = 0.0
+    for i, (app, k) in enumerate(queries):
+        got, want = answers[i].values, cols[app][k].values
+        if app == "ppr":
+            ppr_err = max(ppr_err, _max_rel_err(np, got, want))
+            check(ppr_err <= PPR_RTOL, f"service ppr seed {sources[k]} off "
+                                       f"its run_batch column by {ppr_err}")
+        else:
+            check(np.array_equal(got, want),
+                  f"service {app} source {sources[k]} differs from its "
+                  "run_batch column")
+    fused = launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
+    check(fused == sum(shards) > 0
+          and launches["ell_fold"] + launches["ell_fold_batch"] == 0,
+          f"service: launches {launches}, expected {sum(shards)} fused")
+    log(f"service: {len(queries)} queries from 8 threads in {wall:.3f}s: "
+        f"qps={len(queries) / wall:.3f} p50_ms={snap['p50_ms']:.1f} "
+        f"p99_ms={snap['p99_ms']:.1f} "
+        f"batch_occupancy={snap['batch_occupancy']} launches={launches}; "
+        f"sssp/bfs answers equal their run_batch columns, ppr max rel err "
+        f"{ppr_err:.3e}")
 
 
 def main() -> int:
@@ -462,12 +778,15 @@ def main() -> int:
             f"({cuda.library_path().name})")
         records = phase_kernels(torch, store, dev)
         torch.cuda.empty_cache()
-        launches = phase_main_path(torch, str(store.path))
+        launches, solo = phase_main_path(torch, str(store.path))
+        torch.cuda.empty_cache()
+        batch_launches = phase_batched(torch, str(store.path), solo)
     finally:
         build_thread.join()
         shutil.rmtree(tmp, ignore_errors=True)
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        rec["launches"] = (batch_launches if name.endswith("_batch")
+                           else launches)[name]
     print(json.dumps({"kernels": list(records.values())}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,12 @@ Faithful structure:
     ``active_ratio < selective_threshold`` (paper: 0.001) the per-shard Bloom
     filters gate shard loading (Algorithm 2 line 5).
 
+A ``BatchedVertexProgram`` runs K frontiers through the same loop: values
+are ``[n_pad, K]``, each shard is read once for all K columns
+(``ell_spmv_batch``), shards are scheduled over the union of the columns'
+frontiers, and the run returns a ``BatchRunResult`` with per-column
+iteration counts.
+
 Engines are normally built by ``repro_torch.session.GraphSession``, which
 owns the store, ONE ``CompressedShardCache`` and the device-resident degree
 array shared by every application.  Tuning lives in the frozen
@@ -39,12 +45,13 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.apps import VertexProgram
+from repro_torch.core.apps import BatchedVertexProgram, VertexProgram
 from repro_torch.core.cache import CompressedShardCache
 from repro_torch.core.pipeline import ShardPipeline
 from repro_torch.core.shards import ELLShard
 from repro_torch.graph.source import ConcurrentMutationError, ShardSource
-from repro_torch.kernels.spmv.ops import USE_KERNEL_CHOICES, ell_spmv
+from repro_torch.kernels.spmv.ops import (USE_KERNEL_CHOICES, ell_spmv,
+                                          ell_spmv_batch)
 from repro_torch.state import state_from_numpy, state_to_numpy
 
 _VALID_CACHE_MODES = (0, 1, 2, 3, 4)
@@ -63,8 +70,9 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def pad_to_device(arr: np.ndarray, n_pad: int,
                   device: torch.device) -> torch.Tensor:
-    """[n] host array -> [n_pad] float32 on ``device``, zero-padded."""
-    padded = np.zeros(n_pad, dtype=np.float32)
+    """[n] (or [n, K]) host array -> [n_pad] (or [n_pad, K]) float32 on
+    ``device``, zero-padded."""
+    padded = np.zeros((n_pad,) + arr.shape[1:], dtype=np.float32)
     padded[: arr.shape[0]] = arr
     return torch.from_numpy(padded).to(device)
 
@@ -287,6 +295,47 @@ class RunResult:
         return self.total_edges_processed / max(self.total_seconds, 1e-9)
 
 
+@dataclasses.dataclass
+class BatchRunResult(RunResult):
+    """Result of a batched (multi-frontier) run: ``values`` is [n, K].
+
+    ``iterations``/``history``/``converged`` describe the shared sweep;
+    ``column_iterations[k]`` counts only the iterations column k entered with
+    a non-empty frontier (its honest cost — a landmark that converged in 4
+    hops does not get billed for the 40-hop straggler's sweeps).  The counts
+    are checkpointed, so they span resume boundaries even though ``history``
+    only covers the current run.
+    """
+
+    column_iterations: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, dtype=np.int64))
+    column_converged: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, dtype=bool))
+
+    @property
+    def num_columns(self) -> int:
+        return self.values.shape[1]
+
+    def column(self, k: int) -> RunResult:
+        """Per-column view as a plain RunResult.
+
+        ``iterations`` is the lifetime sweep count (spans resumes);
+        ``history`` covers only this run, truncated to the iterations the
+        column was live for here.  Frontiers only shrink, so a column live
+        at a resume point was live for the entire pre-resume prefix —
+        lifetime count minus the resume offset is its in-run live count.
+        """
+        iters = int(self.column_iterations[k])
+        pre = self.history[0].iteration if self.history else 0
+        return RunResult(values=self.values[:, k], iterations=iters,
+                         history=self.history[: max(0, iters - pre)],
+                         converged=bool(self.column_converged[k]),
+                         epoch=self.epoch)
+
+    def columns(self) -> list[RunResult]:
+        return [self.column(k) for k in range(self.num_columns)]
+
+
 class VSWEngine:
     """One vertex program bound to a graph store (Algorithm 2 executor).
 
@@ -313,6 +362,7 @@ class VSWEngine:
         self.device = resolve_device(device)
         self.store = store
         self.program = program
+        self.batched = isinstance(program, BatchedVertexProgram)
         self.cache = cache if cache is not None else CompressedShardCache(
             store, mode=self.config.cache_mode,
             budget_bytes=self.config.cache_budget_bytes,
@@ -477,11 +527,13 @@ class VSWEngine:
             decode_seconds_saved=cs.decode_seconds_saved - saved0,
         )
 
-    def _sweep(self, x: torch.Tensor, src: torch.Tensor, schedule,
-               epoch_check) -> tuple[torch.Tensor, torch.Tensor]:
+    def _sweep(self, program, x: torch.Tensor, src: torch.Tensor, aux, it,
+               schedule, epoch_check) -> tuple[torch.Tensor, torch.Tensor]:
         """One edge sweep: stream the scheduled shards, fold each into the
-        destination array.  Returns ``(new values [n_pad], changed [n])``."""
-        program, n = self.program, self.n
+        destination array.  Returns ``(new values [n_pad(, K)],
+        changed [n(, K)])``.  ``aux`` (a device [n_pad, K] tensor or None)
+        and ``it`` (a device int32 scalar) reach a batched ``post`` only."""
+        n = self.n
         cfg = self.config
         dst = src.clone()
         for _p, shard, staged in self._pipeline.stream(schedule,
@@ -498,10 +550,21 @@ class VSWEngine:
             R = cols.shape[0]
             start = shard.start_vertex
             num_rows = shard.end_vertex - start
-            seg = ell_spmv(x, cols, vals, row_map, R, program.semiring,
-                           use_kernel=cfg.use_kernel, qparams=qparams,
-                           fused=cfg.fused_gather)
-            new = program.post(seg, src[start:start + R], n).to(dst.dtype)
+            spmv = ell_spmv_batch if self.batched else ell_spmv
+            seg = spmv(x, cols, vals, row_map, R, program.semiring,
+                       use_kernel=cfg.use_kernel, qparams=qparams,
+                       fused=cfg.fused_gather)
+            old = src[start:start + R]
+            if self.batched:
+                rows = torch.arange(start, start + R, device=self.device)
+                post_args = (seg, old, rows, n, None if aux is None
+                             else aux[start:start + R])
+                if program.wants_iteration:
+                    post_args += (it,)
+                new = program.post(*post_args)
+            else:
+                new = program.post(seg, old, n)
+            new = new.to(dst.dtype)
             # The reference writes all R rows, putting the OLD values back
             # into rows [num_rows, R).  Those rows belong to later intervals
             # (or the padding past n); shards run in ascending interval
@@ -522,7 +585,8 @@ class VSWEngine:
     ) -> Iterator[IterationStats]:
         """Generator form of ``run``: yields an IterationStats after every
         iteration (live monitoring), returns the RunResult on exhaustion
-        (also stored in ``self.last_result``).
+        (also stored in ``self.last_result``).  Batched programs return a
+        ``BatchRunResult`` with [n, K] values and per-column accounting.
 
         ``program`` substitutes a compatible program (equal
         ``jit_signature``) for this run only: ``init``/``sources``/
@@ -530,8 +594,8 @@ class VSWEngine:
         answers e.g. SSSP from any source.
 
         ``init_state`` replaces ``program.init`` with explicit
-        ``(values, active_mask)`` arrays.  Mutually exclusive with
-        ``resume``.
+        ``(values, active_mask)`` arrays (``[n]``, or ``[n, K]`` for a
+        batched program).  Mutually exclusive with ``resume``.
 
         The run **pins the store's graph epoch at start**: every shard fetch
         asserts the shard has not moved past it, and a concurrent mutation
@@ -556,14 +620,17 @@ class VSWEngine:
             values, active_mask = init_state
             values = np.asarray(values)
             active_mask = np.asarray(active_mask, dtype=bool)
-            if values.shape != (self.n,) or active_mask.shape != values.shape:
+            want = ((self.n, program.columns) if self.batched
+                    else (self.n,))
+            if values.shape != want or active_mask.shape != values.shape:
                 raise ValueError(
-                    f"init_state arrays must both be [{self.n}], got "
+                    f"init_state arrays must both be {list(want)}, got "
                     f"{values.shape} / {active_mask.shape}")
         else:
             values, active_mask = program.init(self.n, self.in_deg,
                                                self.out_deg)
         start_iter = 0
+        ck_col_iters = None
         if resume and checkpoint_dir:
             ck = latest_checkpoint(checkpoint_dir)
             if ck is not None:
@@ -577,9 +644,24 @@ class VSWEngine:
                         f"checkpoint in {checkpoint_dir!r} was written by "
                         f"{ck[4]!r}, not {self._tag_for(program)!r}; it "
                         f"belongs to a different run")
-                values, active_mask, start_iter = ck[:3]
+                values, active_mask, start_iter, ck_col_iters = ck[:4]
         src, _ = state_from_numpy(values, active_mask, self.device, self.n_pad)
-        active_ids = np.nonzero(active_mask)[0]
+        aux = it_dev = col_live = col_iters = None
+        if self.batched:
+            if program.make_aux is not None:
+                aux = pad_to_device(program.make_aux(self.n), self.n_pad,
+                                    self.device)
+            # per-column frontiers: a shard is skipped only when NO column's
+            # active set touches it, so schedule over the union of frontiers
+            row_active = active_mask.any(axis=1)
+            col_live = active_mask.any(axis=0)
+            # batched checkpoints always carry per-column counts
+            col_iters = (ck_col_iters.astype(np.int64)
+                         if ck_col_iters is not None
+                         else np.zeros(program.columns, dtype=np.int64))
+        else:
+            row_active = active_mask
+        active_ids = np.nonzero(row_active)[0]
         active_ratio = active_ids.size / self.n
         history: list[IterationStats] = []
         converged = False
@@ -592,11 +674,22 @@ class VSWEngine:
             if not schedule:
                 converged = True
                 break
+            if self.batched:
+                # bill this sweep only to columns still holding a frontier
+                col_iters += col_live
+                if program.wants_iteration:
+                    it_dev = torch.tensor(it, dtype=torch.int32,
+                                          device=self.device)
             x = program.gather_transform(src, self._out_deg_dev).contiguous()
-            dst, changed_dev = self._sweep(x, src, schedule, epoch_check)
-            changed = changed_dev.cpu().numpy()  # waits for the sweep
-            last_changed = changed
-            active_ids = np.nonzero(changed)[0]
+            dst, changed_dev = self._sweep(program, x, src, aux, it_dev,
+                                           schedule, epoch_check)
+            last_changed = changed_dev  # read back only for checkpoints
+            if self.batched:
+                col_live = changed_dev.any(dim=0).cpu().numpy()
+                row_active = changed_dev.any(dim=1).cpu().numpy()
+            else:
+                row_active = changed_dev.cpu().numpy()  # waits for the sweep
+            active_ids = np.nonzero(row_active)[0]
             active_ratio = active_ids.size / self.n
             src = dst
             stats = IterationStats(
@@ -618,8 +711,9 @@ class VSWEngine:
             if checkpoint_dir and checkpoint_every \
                     and (it + 1) % checkpoint_every == 0:
                 save_checkpoint(checkpoint_dir,
-                                *state_to_numpy(src, changed, self.n),
-                                it + 1, tag=self._tag_for(program))
+                                *state_to_numpy(src, last_changed, self.n),
+                                it + 1, col_iters=col_iters,
+                                tag=self._tag_for(program))
             yield stats
             if active_ids.size == 0:
                 converged = True
@@ -628,13 +722,23 @@ class VSWEngine:
         final, last_changed = state_to_numpy(src, last_changed, self.n)
         if checkpoint_dir:
             # persist the true active mask — a resumed run must see exactly
-            # the frontier the interrupted run would have used next
+            # the frontier the interrupted run would have used next (for
+            # batched runs this is the full per-column [n, K] frontier)
             save_checkpoint(checkpoint_dir, final, last_changed,
-                            len(history) + start_iter,
+                            len(history) + start_iter, col_iters=col_iters,
                             tag=self._tag_for(program))
-        result = RunResult(values=final, iterations=len(history),
-                           history=history, converged=converged,
-                           epoch=run_epoch, tag=self._tag_for(program))
+        if self.batched:
+            # global convergence (empty union frontier / empty schedule)
+            # implies no column can ever update again
+            result: RunResult = BatchRunResult(
+                values=final, iterations=len(history), history=history,
+                converged=converged, epoch=run_epoch,
+                tag=self._tag_for(program), column_iterations=col_iters,
+                column_converged=~col_live | converged)
+        else:
+            result = RunResult(values=final, iterations=len(history),
+                               history=history, converged=converged,
+                               epoch=run_epoch, tag=self._tag_for(program))
         self.last_result = result
         return result
 

@@ -52,6 +52,16 @@ class Semiring:
             return torch.amax(contrib, dim=dim)
         return torch.amin(contrib, dim=dim)
 
+    def fold_batch(self, edge_vals: Tensor, src_vals: Tensor,
+                   mask: Tensor) -> Tensor:
+        """Batched fold: one edge pass serves K value columns.
+
+        ``edge_vals``/``mask`` are [R, W] (shared by every column);
+        ``src_vals`` is [R, W, K].  COMBINE sees edge [R, W, 1] against
+        source [R, W, K]; reduces the ELL width dim -> [R, K]."""
+        return self.fold(edge_vals[..., None], src_vals, mask[..., None],
+                         dim=1)
+
 
 PLUS_TIMES = Semiring(
     name="plus_times",

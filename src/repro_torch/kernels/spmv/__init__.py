@@ -1,1 +1,3 @@
-from repro_torch.kernels.spmv.ops import ell_fold, ell_gather_fold, ell_spmv  # noqa: F401
+from repro_torch.kernels.spmv.ops import (ell_fold,  # noqa: F401
+                                          ell_gather_fold, ell_spmv,
+                                          ell_spmv_batch)

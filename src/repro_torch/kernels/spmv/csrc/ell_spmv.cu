@@ -1,11 +1,15 @@
 // Blocked-ELL semiring SpMV kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of the reference package
+// Replaces three Pallas TPU kernels of the reference package
 // (src/repro/kernels/spmv/spmv.py):
-//   * ell_spmv_fused  <- ell_spmv_fused_pallas / _ell_spmv_fused_kernel, K = 1:
+//   * ell_spmv_fused, k = 1 <- ell_spmv_fused_pallas / _ell_spmv_fused_kernel:
 //       out[r] = REDUCE_w COMBINE(deq(vals[r, w]), x[cols[r, w]])
-//   * ell_fold        <- ell_fold_pallas / _ell_fold_kernel:
+//   * ell_fold, k = 1       <- ell_fold_pallas / _ell_fold_kernel:
 //       out[r] = REDUCE_w COMBINE(deq(vals[r, w]), xg[r, w])
+//   * ell_spmv_fused, k > 1 <- ell_spmv_fused_pallas with an [n, K] frontier:
+//       out[r, k] = REDUCE_w COMBINE(deq(vals[r, w]), x[cols[r, w], k])
+//   * ell_fold, k > 1       <- ell_fold_batch_pallas / _ell_fold_batch_kernel:
+//       out[r, k] = REDUCE_w COMBINE(deq(vals[r, w]), xg[r, w, k])
 // Slots with cols < 0 contribute the semiring identity.  deq(q) is
 // (float(q) - zero) * scale for int8/float16 values and the value itself for
 // float32 values.
@@ -23,7 +27,12 @@
 // one 16-byte (or 8/4-byte for half/int8 values) vector load per lane per
 // 128 slots, neighbouring lanes on neighbouring addresses; ELL rows are
 // 128-slot multiples (LANE padding of the stored format), so every row
-// starts 16-byte aligned and no tail handling is needed.
+// starts 16-byte aligned and no tail handling is needed.  The batched
+// kernels read each edge slot once for all K columns (the point of a
+// batch) and the K source floats of a slot from one contiguous row, so
+// their bytes are cols/vals once plus K floats per valid slot; padding
+// slots read no source, and a 32-slot chunk of padding costs one coalesced
+// load of its columns.
 //
 // Rounding: dequantize and combine use __fsub_rn/__fmul_rn/__fadd_rn so
 // nvcc cannot contract (q - zero) * scale + s into an FMA.  The plain torch
@@ -144,40 +153,118 @@ ell_row_kernel(const float* __restrict__ src, const int* __restrict__ cols,
   if (lane == 0) out[row] = acc;
 }
 
+// One edge value, dequantized to float (the batched kernels load one slot
+// a lane).
+__device__ __forceinline__ float val1(float q, float, float) { return q; }
+__device__ __forceinline__ float val1(__half q, float scale, float zero) {
+  return deq(__half2float(q), scale, zero);
+}
+__device__ __forceinline__ float val1(int8_t q, float scale, float zero) {
+  return deq(static_cast<float>(q), scale, zero);
+}
+
+// the *_SRC semirings never read the edge values
+template <int SEM> constexpr bool kReadsVals = SEM == PLUS_TIMES || SEM == MIN_PLUS;
+
+// Batched rows, K > 1 columns:
+//   out[r, k] = REDUCE_w COMBINE(deq(vals[r, w]), S(r, w, k))
+// with S = x[cols[r, w] * K + k] (GATHER, x is [n, K] row-major) or the
+// pre-gathered xg[(r * W + w) * K + k].  One warp per ELL row; its 32 lanes
+// split into 32 / kc slot groups of kc = min(next_pow2(K), 32) columns.
+// The warp walks the row 32 slots at a time: each lane loads one slot's
+// column (and edge value) with one coalesced load, a chunk that holds only
+// padding is skipped whole (__ballot_sync), and otherwise lane (g, j) takes
+// slots t = g, g + groups, ... of the chunk from their owners with
+// __shfl_sync and reads column c0 + j of each valid slot's source row: a
+// group reads kc neighbouring floats.  Columns past 32 loop in chunks of
+// kc.  The groups are then folded with __shfl_xor_sync over the lane bits
+// above j, and group 0 writes its columns: every output element has
+// exactly one writer.
+template <int SEM, typename V, bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+ell_row_batch_kernel(const float* __restrict__ src,
+                     const int* __restrict__ cols, const V* __restrict__ vals,
+                     float* __restrict__ out, int rows, int width, int k,
+                     int kc, float scale, float zero) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // warp-uniform: whole warps leave together
+  const int groups = 32 / kc;
+  const int g = lane / kc;
+  const int j = lane % kc;
+  const int64_t base = static_cast<int64_t>(row) * width;
+  for (int c0 = 0; c0 < k; c0 += kc) {
+    const int col = c0 + j;
+    const bool live = col < k;
+    float acc = identity<SEM>();
+    for (int w0 = 0; w0 < width; w0 += 32) {
+      const int c_lane = cols[base + w0 + lane];
+      if (__ballot_sync(0xffffffffu, c_lane >= 0) == 0) continue;
+      float v_lane = 0.0f;
+      if constexpr (kReadsVals<SEM>)
+        v_lane = val1(vals[base + w0 + lane], scale, zero);
+      for (int t = g; t < 32; t += groups) {  // same trip count every lane
+        const int c = __shfl_sync(0xffffffffu, c_lane, t);
+        float v = 0.0f;
+        if constexpr (kReadsVals<SEM>)
+          v = __shfl_sync(0xffffffffu, v_lane, t);
+        float s = 0.0f;
+        if (c >= 0 && live) {  // padding slots read no source at all
+          s = GATHER ? __ldg(src + static_cast<int64_t>(c) * k + col)
+                     : src[(base + w0 + t) * k + col];
+        }
+        acc = step<SEM>(acc, c, v, s);
+      }
+    }
+    for (int off = 16; off >= kc; off >>= 1)
+      acc = reduce<SEM>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (g == 0 && live) out[static_cast<int64_t>(row) * k + col] = acc;
+  }
+}
+
+// k == 1: the single-column kernel; k > 1: the batched one.
 template <int SEM, typename V, bool GATHER>
 int launch_typed(const float* src, const int* cols, const void* vals,
-                 float* out, int rows, int width, float scale, float zero,
-                 cudaStream_t stream) {
+                 float* out, int rows, int width, int k, float scale,
+                 float zero, cudaStream_t stream) {
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0)
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const V* v = static_cast<const V*>(vals);
+  if (k == 1) {
     ell_row_kernel<SEM, V, GATHER><<<blocks, kThreads, 0, stream>>>(
-        src, cols, static_cast<const V*>(vals), out, rows, width, scale, zero);
+        src, cols, v, out, rows, width, scale, zero);
+  } else {
+    int kc = 1;
+    while (kc < k && kc < 32) kc <<= 1;
+    ell_row_batch_kernel<SEM, V, GATHER><<<blocks, kThreads, 0, stream>>>(
+        src, cols, v, out, rows, width, k, kc, scale, zero);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int SEM, bool GATHER>
 int launch_dtype(int dtype, const float* src, const int* cols,
-                 const void* vals, float* out, int rows, int width,
+                 const void* vals, float* out, int rows, int width, int k,
                  float scale, float zero, cudaStream_t stream) {
   switch (dtype) {
-    case F32: return launch_typed<SEM, float, GATHER>(src, cols, vals, out, rows, width, scale, zero, stream);
-    case F16: return launch_typed<SEM, __half, GATHER>(src, cols, vals, out, rows, width, scale, zero, stream);
-    case I8: return launch_typed<SEM, int8_t, GATHER>(src, cols, vals, out, rows, width, scale, zero, stream);
+    case F32: return launch_typed<SEM, float, GATHER>(src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case F16: return launch_typed<SEM, __half, GATHER>(src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case I8: return launch_typed<SEM, int8_t, GATHER>(src, cols, vals, out, rows, width, k, scale, zero, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool GATHER>
 int launch(int semiring, int dtype, const float* src, const int* cols,
-           const void* vals, float* out, int rows, int width, float scale,
-           float zero, cudaStream_t stream) {
-  if (width % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+           const void* vals, float* out, int rows, int width, int k,
+           float scale, float zero, cudaStream_t stream) {
+  if (width % 128 != 0 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (semiring) {
-    case PLUS_TIMES: return launch_dtype<PLUS_TIMES, GATHER>(dtype, src, cols, vals, out, rows, width, scale, zero, stream);
-    case PLUS_SRC: return launch_dtype<PLUS_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, scale, zero, stream);
-    case MIN_PLUS: return launch_dtype<MIN_PLUS, GATHER>(dtype, src, cols, vals, out, rows, width, scale, zero, stream);
-    case MIN_SRC: return launch_dtype<MIN_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, scale, zero, stream);
-    case MAX_SRC: return launch_dtype<MAX_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, scale, zero, stream);
+    case PLUS_TIMES: return launch_dtype<PLUS_TIMES, GATHER>(dtype, src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case PLUS_SRC: return launch_dtype<PLUS_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case MIN_PLUS: return launch_dtype<MIN_PLUS, GATHER>(dtype, src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case MIN_SRC: return launch_dtype<MIN_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, k, scale, zero, stream);
+    case MAX_SRC: return launch_dtype<MAX_SRC, GATHER>(dtype, src, cols, vals, out, rows, width, k, scale, zero, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -186,18 +273,20 @@ int launch(int semiring, int dtype, const float* src, const int* cols,
 
 // Each entry point launches on `stream` and returns cudaGetLastError() after
 // the launch (0 = cudaSuccess); it never synchronises and allocates nothing.
+// `k` is the number of frontier columns: x is [n, k] / xg is [R, W, k] and
+// out is [R, k], all row-major.
 extern "C" int ell_spmv_fused(const float* x, const int* cols,
                               const void* vals, float* out, int rows,
-                              int width, int semiring, int dtype, float scale,
-                              float zero, cudaStream_t stream) {
-  return launch<true>(semiring, dtype, x, cols, vals, out, rows, width, scale,
-                      zero, stream);
+                              int width, int k, int semiring, int dtype,
+                              float scale, float zero, cudaStream_t stream) {
+  return launch<true>(semiring, dtype, x, cols, vals, out, rows, width, k,
+                      scale, zero, stream);
 }
 
 extern "C" int ell_fold(const float* xg, const int* cols, const void* vals,
-                        float* out, int rows, int width, int semiring,
+                        float* out, int rows, int width, int k, int semiring,
                         int dtype, float scale, float zero,
                         cudaStream_t stream) {
-  return launch<false>(semiring, dtype, xg, cols, vals, out, rows, width,
+  return launch<false>(semiring, dtype, xg, cols, vals, out, rows, width, k,
                        scale, zero, stream);
 }

@@ -8,16 +8,22 @@ rebuilds) and loads it with ``ctypes``; importing this module builds nothing.
 Kernels and the Pallas TPU kernels they replace
 (``src/repro/kernels/spmv/spmv.py``):
 
-  * ``ell_spmv_fused`` — ``ell_spmv_fused_pallas`` with K = 1: gathers the
-    frontier ``x[cols]`` inside the kernel, folds each ELL row -> [R, 1].
-  * ``ell_fold``       — ``ell_fold_pallas``: folds pre-gathered sources
-    ``xg [R, W]`` -> [R, 1].
+  * ``ell_spmv_fused``       — ``ell_spmv_fused_pallas`` with K = 1: gathers
+    the frontier ``x[cols]`` inside the kernel, folds each ELL row -> [R, 1].
+  * ``ell_fold``             — ``ell_fold_pallas``: folds pre-gathered
+    sources ``xg [R, W]`` -> [R, 1].
+  * ``ell_spmv_fused_batch`` — ``ell_spmv_fused_pallas`` with K > 1: the
+    same with an ``[n, K]`` frontier -> [R, K].
+  * ``ell_fold_batch``       — ``ell_fold_batch_pallas``: folds
+    ``xg [R, W, K]`` -> [R, K].
 
-Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
-its output with ``torch.empty``, launches on the current stream, raises if
-the launch was refused, and adds one to ``launches[<name>]``.  It takes CUDA
-tensors only: the plain versions live in ``ref.py`` and ``ops.py`` picks
-between the two by the tensors' device.
+The batched wrappers hand K = 1 to the single-column kernels (and count it
+under their names).  Each wrapper checks device, dtype, shape, contiguity
+and alignment, allocates its output with ``torch.empty``, launches on the
+current stream, raises if the launch was refused, and adds one to
+``launches[<name>]`` (under a lock: service threads launch concurrently).
+It takes CUDA tensors only: the plain versions live in ``ref.py`` and
+``ops.py`` picks between the two by the tensors' device.
 """
 from __future__ import annotations
 
@@ -44,15 +50,18 @@ _DTYPE_IDS = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
 _WIDTH_MULTIPLE = 128
 
 # launch counts, one per kernel: a wrapper adds one each time it launches
-launches = {"ell_spmv_fused": 0, "ell_fold": 0}
+launches = {"ell_spmv_fused": 0, "ell_fold": 0, "ell_spmv_fused_batch": 0,
+            "ell_fold_batch": 0}
+_launches_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -95,11 +104,13 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for fn in (lib.ell_spmv_fused, lib.ell_fold):
+                # (src, cols, vals, out, rows, width, k, semiring, dtype,
+                #  scale, zero, stream)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                               ctypes.c_void_p]
+                               ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                               ctypes.c_float, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -120,8 +131,11 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
 
 
 def _launch(kernel: str, src: torch.Tensor, cols: torch.Tensor,
-            vals: torch.Tensor, semiring: Semiring | str,
-            qparams) -> torch.Tensor:
+            vals: torch.Tensor, semiring: Semiring | str, qparams,
+            k: int) -> torch.Tensor:
+    """Launch ``kernel`` (the C entry point) for ``k`` columns -> [R, k];
+    counted under ``kernel`` for k = 1 and ``<kernel>_batch`` above."""
+    counter = kernel if k == 1 else f"{kernel}_batch"
     device = src.device
     _check("cols", cols, device, (torch.int32,), 2)
     _check("vals", vals, device, tuple(_DTYPE_IDS), 2)
@@ -136,19 +150,20 @@ def _launch(kernel: str, src: torch.Tensor, cols: torch.Tensor,
     if sem not in SEMIRINGS:
         raise KeyError(f"unknown semiring {sem!r}")
     scale, zero = (1.0, 0.0) if qparams is None else map(float, qparams)
-    out = torch.empty((rows, 1), dtype=torch.float32, device=device)
+    out = torch.empty((rows, k), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, kernel)(
             src.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
-            rows, width, SEMIRING_IDS[sem], _DTYPE_IDS[vals.dtype], scale,
+            rows, width, k, SEMIRING_IDS[sem], _DTYPE_IDS[vals.dtype], scale,
             zero, stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc} "
-                           f"(rows={rows}, width={width}, semiring={sem}, "
-                           f"vals={vals.dtype})")
-    launches[kernel] += 1
+        raise RuntimeError(f"{counter} launch failed with CUDA error {rc} "
+                           f"(rows={rows}, width={width}, k={k}, "
+                           f"semiring={sem}, vals={vals.dtype})")
+    with _launches_lock:
+        launches[counter] += 1
     return out
 
 
@@ -158,7 +173,7 @@ def ell_spmv_fused(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     gathering ``x[cols]`` inside the kernel.  ``qparams`` is the
     ``(scale, zero)`` pair of int8/float16 ``vals``."""
     _check("x", x, x.device, (torch.float32,), 1)
-    return _launch("ell_spmv_fused", x, cols, vals, semiring, qparams)
+    return _launch("ell_spmv_fused", x, cols, vals, semiring, qparams, 1)
 
 
 def ell_fold(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
@@ -168,4 +183,25 @@ def ell_fold(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
     if xg.shape != cols.shape:
         raise ValueError(f"xg {tuple(xg.shape)} and cols {tuple(cols.shape)} "
                          "differ in shape")
-    return _launch("ell_fold", xg, cols, vals, semiring, qparams)
+    return _launch("ell_fold", xg, cols, vals, semiring, qparams, 1)
+
+
+def ell_spmv_fused_batch(x: torch.Tensor, cols: torch.Tensor,
+                         vals: torch.Tensor, semiring: Semiring | str,
+                         qparams=None) -> torch.Tensor:
+    """[n, K] frontier + [R, W] blocked-ELL -> [R, K] partials, gathering
+    ``x[cols, :]`` inside the kernel."""
+    _check("x", x, x.device, (torch.float32,), 2)
+    return _launch("ell_spmv_fused", x, cols, vals, semiring, qparams,
+                   x.shape[1])
+
+
+def ell_fold_batch(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
+                   semiring: Semiring | str, qparams=None) -> torch.Tensor:
+    """[R, W, K] pre-gathered sources + shared [R, W] edges -> [R, K]."""
+    _check("xg", xg, xg.device, (torch.float32,), 3)
+    if xg.shape[:2] != cols.shape:
+        raise ValueError(f"xg {tuple(xg.shape)} and cols {tuple(cols.shape)} "
+                         "differ in their first two dims")
+    return _launch("ell_fold", xg, cols, vals, semiring, qparams,
+                   xg.shape[2])

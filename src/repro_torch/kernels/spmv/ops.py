@@ -11,12 +11,13 @@
 A CUDA tensor never reaches the plain version unless ``use_kernel=False``,
 and a kernel that cannot be built or launched raises.
 
-On CUDA, ``ell_spmv`` (one frontier column) runs the fused kernel, which
-gathers ``x[cols]`` inside the kernel: that is the only production path,
-with no VMEM gate.  ``fused=False`` gathers in torch and folds with the
-``ell_fold`` kernel; it exists so that tests and ``chip_smoke.py`` can drive
-that kernel on the main path and hold it to the same results.  The wrapped-
-row segment-combine runs after either kernel as torch ops.  Quantized edge
+On CUDA, ``ell_spmv`` (one frontier column) and ``ell_spmv_batch`` (an
+``[n, K]`` frontier) run the fused kernel, which gathers ``x[cols]`` inside
+the kernel: that is the only production path, with no VMEM gate.
+``fused=False`` gathers in torch and folds with the ``ell_fold`` /
+``ell_fold_batch`` kernel; it exists so that tests and ``chip_smoke.py`` can
+drive that kernel on the main path and hold it to the same results.  The
+wrapped-row segment-combine runs after either kernel as torch ops.  Quantized edge
 values (int8/float16 + ``(scale, zero)`` qparams) are dequantized inside the
 kernels and by ``ref.maybe_dequantize`` on the plain path, with the same
 rounding.
@@ -52,10 +53,14 @@ def uses_kernel(use_kernel, device: torch.device | str) -> bool:
 
 
 def describe_dispatch(use_kernel="auto", *, device: torch.device | str,
-                      fused: bool = True) -> str:
-    """Path ``ell_spmv`` takes for tensors on ``device``:
-    ``torch`` | ``cuda:fused`` (production) | ``cuda:gather+fold`` (only
-    with ``fused=False``, the test switch that drives the fold kernel)."""
+                      k: int = 1, fused: bool = True) -> str:
+    """Path ``ell_spmv`` (``k == 1``) or ``ell_spmv_batch`` (``k`` frontier
+    columns) takes for tensors on ``device``: ``torch`` | ``cuda:fused``
+    (production) | ``cuda:gather+fold`` (only with ``fused=False``, the test
+    switch that drives the fold kernel).  Unlike the reference's VMEM gate,
+    ``k`` picks no path here: the kernels take any K."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
     if not uses_kernel(use_kernel, device):
         return "torch"
     return "cuda:fused" if fused else "cuda:gather+fold"
@@ -97,3 +102,26 @@ def ell_spmv(x, cols, vals, row_map, num_segments: int, semiring,
         partials = _cuda.ell_fold(_ref.gather(x, cols), vals, cols, semiring,
                                   qparams)
     return _ref.segment_combine(partials, row_map, num_segments, semiring)
+
+
+def ell_spmv_batch(x, cols, vals, row_map, num_segments: int, semiring,
+                   use_kernel="auto", qparams=None, fused: bool = True):
+    """Batched shard update: one edge pass serves K frontiers.
+
+    x: [n, K] resident source matrix; returns [num_segments, K] partials —
+    column k is exactly ``ell_spmv(x[:, k], ...)``.  The fused kernel never
+    materializes the [R, W, K] gathered matrix; ``fused=False`` gathers it
+    in torch and folds it with the ``ell_fold_batch`` kernel.
+    """
+    if not uses_kernel(use_kernel, x.device):
+        return _ref.ell_spmv_batch_ref(x, cols,
+                                       _ref.maybe_dequantize(vals, qparams),
+                                       row_map, num_segments, semiring)
+    if fused:
+        partials = _cuda.ell_spmv_fused_batch(x, cols, vals, semiring,
+                                              qparams)
+    else:
+        partials = _cuda.ell_fold_batch(_ref.gather(x, cols), vals, cols,
+                                        semiring, qparams)
+    return _ref.segment_combine_batch(partials, row_map, num_segments,
+                                      semiring)

@@ -37,9 +37,11 @@ def maybe_dequantize(vals: torch.Tensor, qparams=None) -> torch.Tensor:
 
 
 def gather(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """x[cols] with sentinel (-1) slots clamped to 0 -> same shape as cols."""
+    """x[cols] with sentinel (-1) slots clamped to 0: [n] -> cols' shape,
+    [n, K] -> cols' shape + [K]."""
     safe = torch.where(cols >= 0, cols, 0)
-    return torch.index_select(x, 0, safe.reshape(-1)).reshape(cols.shape)
+    return torch.index_select(x, 0, safe.reshape(-1)).reshape(
+        cols.shape + x.shape[1:])
 
 
 def ell_fold_ref(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
@@ -50,6 +52,14 @@ def ell_fold_ref(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
     """
     sem = _as_semiring(semiring)
     return sem.fold(vals, xg, cols >= 0, dim=-1)[:, None]
+
+
+def ell_fold_batch_ref(xg: torch.Tensor, vals: torch.Tensor,
+                       cols: torch.Tensor,
+                       semiring: Semiring | str) -> torch.Tensor:
+    """Batched fold: [R, W, K] gathered sources + shared [R, W] edges ->
+    [R, K].  ``cols < 0`` slots contribute the identity in every column."""
+    return _as_semiring(semiring).fold_batch(vals, xg, cols >= 0)
 
 
 def ell_gather_fold_ref(x_blk: torch.Tensor, cols: torch.Tensor,
@@ -69,14 +79,26 @@ def segment_combine(partials: torch.Tensor, row_map: torch.Tensor,
     not assumed sorted: padding rows sit at destination 0 and contribute the
     identity there.
     """
+    return segment_combine_batch(partials.reshape(-1), row_map, num_segments,
+                                 semiring)
+
+
+def segment_combine_batch(partials: torch.Tensor, row_map: torch.Tensor,
+                          num_segments: int,
+                          semiring: Semiring | str) -> torch.Tensor:
+    """Batched wrapped-row fold: [R, K] -> [num_segments, K] (and [R] ->
+    [num_segments]); segment ids index the leading axis, so every column
+    folds in one scatter, under the same rules as ``segment_combine``."""
     sem = _as_semiring(semiring)
-    p = partials.reshape(-1)
-    out = torch.full((num_segments,), sem.identity, dtype=p.dtype,
-                     device=p.device)
+    out = torch.full((num_segments,) + partials.shape[1:], sem.identity,
+                     dtype=partials.dtype, device=partials.device)
     idx = row_map.to(torch.int64)
     if sem.is_plus:
-        return out.index_add_(0, idx, p)
-    return out.scatter_reduce_(0, idx, p, "amax" if sem.is_max else "amin",
+        return out.index_add_(0, idx, partials)
+    if partials.dim() == 2:
+        idx = idx[:, None].expand(partials.shape)
+    return out.scatter_reduce_(0, idx, partials,
+                               "amax" if sem.is_max else "amin",
                                include_self=True)
 
 
@@ -90,3 +112,13 @@ def ell_spmv_ref(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     """
     partials = ell_fold_ref(gather(x, cols), vals, cols, semiring)
     return segment_combine(partials, row_map, num_segments, semiring)
+
+
+def ell_spmv_batch_ref(x: torch.Tensor, cols: torch.Tensor,
+                       vals: torch.Tensor, row_map: torch.Tensor,
+                       num_segments: int,
+                       semiring: Semiring | str) -> torch.Tensor:
+    """Batched shard update: x is [n, K] -> [num_segments, K]; column k is
+    ``ell_spmv_ref(x[:, k], ...)``."""
+    partials = ell_fold_batch_ref(gather(x, cols), vals, cols, semiring)
+    return segment_combine_batch(partials, row_map, num_segments, semiring)

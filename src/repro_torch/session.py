@@ -15,6 +15,15 @@ per-shard Bloom filters, and a cache of constructed engines.
         cc = s.run("cc")
         print(s.stats.hit_ratio, s.stats.disk_bytes)
 
+``run_batch`` answers K single-source queries (SSSP/BFS landmarks,
+personalized-PageRank seeds) through ONE sweep of the edge shards per
+iteration, and ``service()`` wraps the session in a thread-safe
+``GraphService`` that coalesces concurrent point queries into such batches:
+
+        dists = s.run_batch("sssp", sources=[0, 17, 4095])
+        with s.service(max_batch=16) as svc:
+            print(svc.submit("bfs", source=42).result().values[:10])
+
 Runs go to ``device="cuda"`` unless the caller asks for ``device="cpu"``;
 without a GPU, a session that asks for one raises.  The store is a
 directory written by ``preprocess_graph`` (of this package or the reference
@@ -29,15 +38,36 @@ from typing import Iterable, Iterator
 
 import torch
 
-from repro_torch.core.apps import VertexProgram, get_app
+from repro_torch.core.apps import (BatchedVertexProgram, VertexProgram,
+                                   get_app)
 from repro_torch.core.cache import CompressedShardCache
-from repro_torch.core.engine import (EngineConfig, IterationStats, RunResult,
-                                     VSWEngine, _store_epoch, pad_to_device,
+from repro_torch.core.engine import (BatchRunResult, EngineConfig,
+                                     IterationStats, RunResult, VSWEngine,
+                                     _store_epoch, pad_to_device,
                                      resolve_device)
 from repro_torch.graph.source import ShardSource
 from repro_torch.graph.storage import GraphStore
 
 BACKENDS = ("npz",)
+
+# run_batch accepts the single-source names and maps them onto the batched
+# program factories (which are also directly addressable by name).
+_BATCH_ALIASES = {
+    "sssp": "sssp_multi",
+    "bfs": "bfs_multi",
+    "pagerank": "personalized_pagerank",
+    "ppr": "personalized_pagerank",
+    "lp": "lp_multi",
+    "kcore": "kcore_multi",
+    "triangle_count": "triangles_multi",
+    "random_walk": "random_walks",
+}
+# factories whose per-column parameter is not called "sources"; sources=
+# still works and is rewritten onto the factory's own vocabulary
+_BATCH_PARAMS = {"personalized_pagerank": "seeds"}
+# batched factories and drivers of the reference's app zoo (ROADMAP A7)
+_UNPORTED_BATCH_APPS = ("lp_multi", "kcore_multi", "triangles_multi",
+                        "random_walks", "triangles")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -124,13 +154,16 @@ class GraphSession:
         self.max_engines = max_engines
         self._engines: "OrderedDict" = OrderedDict()
         self._engines_lock = threading.RLock()
+        # combined [n, K] result of the most recent run_batch (survives
+        # engine-cache eviction, unlike engine(...).last_result)
+        self.last_batch_result: BatchRunResult | None = None
         # telemetry taps shared (by reference) with every engine this
         # session builds: each entry is called with every IterationStats
         self.iteration_observers: list = []
 
     # -- engine construction / reuse ------------------------------------
     def _resolve(self, app, app_kwargs) -> tuple[VertexProgram, object]:
-        if isinstance(app, VertexProgram):
+        if isinstance(app, (VertexProgram, BatchedVertexProgram)):
             if app_kwargs:
                 raise TypeError(
                     "application kwargs only apply when dispatching by name; "
@@ -218,6 +251,85 @@ class GraphSession:
                             checkpoint_every=checkpoint_every, resume=resume,
                             program=run_program)
 
+    def run_batch(self, app: str | BatchedVertexProgram = "sssp", *,
+                  sources: Iterable[int] | None = None, max_iters: int = 200,
+                  checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+                  resume: bool = False, config: EngineConfig | None = None,
+                  **app_kwargs) -> list[RunResult]:
+        """K single-source queries through ONE sweep of the edge shards.
+
+        Each iteration pays disk + decompression + host-to-device staging
+        for a shard once and advances every column against it, so K
+        landmark queries cost close to one query's I/O instead of K (paper
+        §2.2's amortization, applied across *queries*).
+
+        Parameters
+        ----------
+        app:
+            A single-source name (``"sssp"``/``"bfs"``/``"pagerank"``/
+            ``"ppr"`` — the last two become personalized PageRank over the
+            given seeds), a batched factory name (``"sssp_multi"``/
+            ``"bfs_multi"``/``"personalized_pagerank"``), or a
+            ``BatchedVertexProgram``.
+        sources:
+            One frontier vertex per column (for PPR these are the ``seeds``;
+            either spelling works).  Required when dispatching by name.
+        max_iters / checkpoint_dir / checkpoint_every / resume / config:
+            As in ``run``; checkpoints hold the full [n, K] state and the
+            per-column iteration counts, so a resumed batch continues every
+            column (in either package: the format is the reference's).
+
+        Returns
+        -------
+        One ``RunResult`` per source, in order, with honest per-column
+        iteration counts (a column is only billed for sweeps it entered
+        with a live frontier).  The combined ``BatchRunResult`` ([n, K]
+        values, shared history) stays available as
+        ``session.last_batch_result`` until the next ``run_batch`` call.
+        """
+        if isinstance(app, BatchedVertexProgram):
+            if sources is not None:
+                raise TypeError(
+                    "sources= only applies when dispatching by name; the "
+                    "BatchedVertexProgram already fixes its frontiers")
+            # forward app_kwargs so misuse raises like run() does
+            program, prog_key = self._resolve(app, app_kwargs)
+        else:
+            name = _BATCH_ALIASES.get(app, app)
+            if name in _UNPORTED_BATCH_APPS:
+                raise _not_ported(f"run_batch({app!r})", "A7")
+            param = _BATCH_PARAMS.get(name, "sources")
+            if sources is not None:
+                if param in app_kwargs:
+                    raise TypeError(
+                        f"pass sources= or {param}=, not both")
+                app_kwargs[param] = tuple(int(s) for s in sources)
+            elif param in app_kwargs:
+                # the factory's own vocabulary (e.g. seeds= for PPR) works too
+                app_kwargs[param] = tuple(int(s) for s in app_kwargs[param])
+            else:
+                raise TypeError("run_batch needs sources=[...] when "
+                                "dispatching by name")
+            # signature-keyed dispatch so repeat calls reuse the engine —
+            # across DIFFERENT landmark sets of the same K, not just repeats
+            # of one set
+            try:
+                program, prog_key = self._resolve(name, app_kwargs)
+            except TypeError as exc:
+                if f"unexpected keyword argument {param!r}" in str(exc):
+                    # the factory has no frontier parameter at all
+                    raise TypeError(
+                        f"{name!r} is not a batched application") from None
+                raise  # genuine bad kwarg — keep the factory's own message
+        if not isinstance(program, BatchedVertexProgram):
+            raise TypeError(f"{app!r} is not a batched application")
+        eng = self._engine_for(program, prog_key, config)
+        result = eng.run(max_iters=max_iters, checkpoint_dir=checkpoint_dir,
+                         checkpoint_every=checkpoint_every, resume=resume,
+                         program=program if prog_key[0] == "sig" else None)
+        self.last_batch_result = result
+        return result.columns()
+
     def run_many(self, apps: Iterable, **run_kwargs) -> list[RunResult]:
         """Run several applications back-to-back over the shared cache.
 
@@ -234,18 +346,27 @@ class GraphSession:
                 results.append(self.run(item, **run_kwargs))
         return results
 
-    # -- surfaces of the reference session not ported yet ---------------
-    def run_batch(self, *args, **kwargs):
-        raise _not_ported("run_batch (K frontiers per sweep)", "A6")
+    def service(self, config=None, **overrides):
+        """A concurrent query service over this session.
 
+        Returns a started ``repro_torch.serve.GraphService`` wrapping this
+        session: many client threads ``submit()`` single queries, the
+        service coalesces compatible ones into K-column micro-batches served
+        by ``run_batch`` through the shared compressed cache, and each
+        caller gets its own future/``RunResult``.  ``config`` is a
+        ``repro_torch.serve.ServiceConfig``; keyword overrides
+        (``max_batch=...``, ``max_wait_ms=...``) adjust single fields.
+        The session must outlive the service (close the service first).
+        """
+        from repro_torch.serve.graph_service import GraphService
+        return GraphService(self, config, **overrides)
+
+    # -- surfaces of the reference session not ported yet ---------------
     def run_incremental(self, *args, **kwargs):
         raise _not_ported("run_incremental", "A5b")
 
     def apply_mutations(self, *args, **kwargs):
         raise _not_ported("apply_mutations", "A5b")
-
-    def service(self, *args, **kwargs):
-        raise _not_ported("service (GraphService)", "A8")
 
     def attach_hub(self, *args, **kwargs):
         raise _not_ported("attach_hub (telemetry)", "A8")

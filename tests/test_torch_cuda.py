@@ -6,8 +6,12 @@ no jax (the machine with the card has none).  Run it there with
 
 Tolerances: min/max semirings bitwise (the kernels round op by op like the
 plain version); plus semirings ``rtol=PLUS_RTOL`` (a row of W <= 512
-positive float32 terms summed in another order: at most 512·2^-24).
+positive float32 terms summed in another order: at most 512·2^-24);
+personalized PageRank ``rtol=PPR_RTOL`` (that per-iteration bound, damped
+by 1 / (1 - 0.85) over the run: ``tests/test_torch_batch.py``).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +28,7 @@ pytestmark = pytest.mark.cuda
 
 SEMIS = list(SEMIRINGS)
 PLUS_RTOL = 3.1e-5
+PPR_RTOL = 2.1e-4
 
 
 @pytest.fixture
@@ -77,6 +82,57 @@ def test_kernels_match_plain(dev, semiring, dtype):
     assert cuda.launches["ell_fold"] == before["ell_fold"] + 1
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16", "int8"])
+@pytest.mark.parametrize("semiring", SEMIS)
+@pytest.mark.parametrize("k", [2, 3, 16, 33, 64])
+def test_batch_kernels_match_plain(dev, k, semiring, dtype):
+    """B1 at K > 1 and B3 against their plain versions; K = 33 and 64 take
+    more than one 32-column chunk, K = 3 leaves lanes of a group idle."""
+    ell = _shard(k + len(semiring), dtype, num_rows=1500)
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy((rng.random((50_000, k)) * 100)
+                         .astype(np.float32)).to(dev)
+    if not SEMIRINGS[semiring].is_plus:
+        x[torch.from_numpy(rng.random((50_000, k)) < 0.2).to(dev)] = \
+            float("inf")
+    cols = torch.from_numpy(ell.cols).to(dev)
+    vals = torch.from_numpy(ell.vals).to(dev)
+    qp = (ell.val_scale, ell.val_zero)
+    xg = ref.gather(x, cols)
+    want = ref.ell_fold_batch_ref(xg, ref.maybe_dequantize(vals, qp), cols,
+                                  semiring)
+    before = dict(cuda.launches)
+    got = cuda.ell_spmv_fused_batch(x, cols, vals, semiring, qp)
+    _assert_close(got, want, semiring)
+    got = cuda.ell_fold_batch(xg, vals, cols, semiring, qp)
+    torch.cuda.synchronize()
+    _assert_close(got, want, semiring)
+    assert got.shape == (ell.shape[0], k)
+    assert cuda.launches["ell_spmv_fused_batch"] == \
+        before["ell_spmv_fused_batch"] + 1
+    assert cuda.launches["ell_fold_batch"] == before["ell_fold_batch"] + 1
+
+
+def test_batch_wrappers_at_k1_take_the_single_column_kernels(dev):
+    ell = _shard(2, "int8")
+    x = torch.rand(50_000, 1, device=dev)
+    cols = torch.from_numpy(ell.cols).to(dev)
+    vals = torch.from_numpy(ell.vals).to(dev)
+    qp = (ell.val_scale, ell.val_zero)
+    before = dict(cuda.launches)
+    got = cuda.ell_spmv_fused_batch(x, cols, vals, "min_plus", qp)
+    want = cuda.ell_spmv_fused(x[:, 0].contiguous(), cols, vals, "min_plus",
+                               qp)
+    fold = cuda.ell_fold_batch(ref.gather(x, cols), vals, cols, "min_plus",
+                               qp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(fold, want)
+    assert cuda.launches["ell_spmv_fused"] == before["ell_spmv_fused"] + 2
+    assert cuda.launches["ell_fold"] == before["ell_fold"] + 1
+    assert cuda.launches["ell_spmv_fused_batch"] == \
+        before["ell_spmv_fused_batch"]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     ell = _shard(0, "float32")
     x = torch.ones(50_000, device=dev)
@@ -91,6 +147,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda.ell_spmv_fused(x, cols.t(), vals.t(), "min_plus")
     with pytest.raises(NotImplementedError, match="B4"):
         ops.ell_gather_fold(x, cols, vals, "min_plus")
+    with pytest.raises(ValueError, match="2-D"):
+        cuda.ell_spmv_fused_batch(x, cols, vals, "min_plus")
+    with pytest.raises(ValueError, match="first two dims"):
+        cuda.ell_fold_batch(torch.ones(4, 128, 2, device=dev), vals, cols,
+                            "min_plus")
 
 
 @pytest.fixture(scope="module")
@@ -126,3 +187,75 @@ def test_session_on_card_matches_cpu(dev, store_path, app):
             np.testing.assert_allclose(r.values, want.values, rtol=2.1e-4)
         else:
             np.testing.assert_array_equal(r.values, want.values)
+
+
+@pytest.mark.parametrize("app,kw", [("sssp", {}), ("bfs", {}),
+                                    ("ppr", dict(max_iters=10))])
+def test_run_batch_on_card_matches_plain(dev, store_path, app, kw):
+    """run_batch on the card through each kernel, against the plain version
+    on the same card; one launch of the batched kernel per processed
+    shard; sssp/bfs columns equal solo runs."""
+    sources = [0, 7, 300, 1001, 4000, 2, 3, 64]
+    with GraphSession(store_path) as s:
+        plain = s.run_batch(app, sources=sources,
+                            config=s.config.replace(use_kernel=False), **kw)
+        for fused in (True, False):
+            cuda.reset_launches()
+            got = s.run_batch(app, sources=sources,
+                              config=s.config.replace(fused_gather=fused),
+                              **kw)
+            shards = sum(h.shards_processed
+                         for h in s.last_batch_result.history)
+            name = "ell_spmv_fused_batch" if fused else "ell_fold_batch"
+            assert cuda.launches[name] == shards > 0
+            for g, w in zip(got, plain):
+                assert g.iterations == w.iterations
+                if app == "ppr":
+                    np.testing.assert_allclose(g.values, w.values,
+                                               rtol=PPR_RTOL, atol=0)
+                else:
+                    np.testing.assert_array_equal(g.values, w.values)
+        if app != "ppr":
+            for k in (0, 3):
+                solo = s.run(app, source=sources[k])
+                np.testing.assert_array_equal(got[k].values, solo.values)
+
+
+def test_service_hammer_on_card(dev, store_path):
+    """8 client threads, two runners sweeping at once on the card (sssp/bfs
+    share one engine, ppr has its own): every sssp/bfs answer equals the
+    solo run bitwise, every ppr answer its K = 1 run_batch to PPR_RTOL."""
+    queries = [("sssp", dict(source=s)) for s in (0, 7, 300, 1001)] \
+        + [("bfs", dict(source=s)) for s in (2, 3, 64, 4000)] \
+        + [("ppr", dict(seed=s, max_iters=10)) for s in (0, 9, 500, 77)]
+    queries = queries * 2  # repeats ride the same batches
+    answers, errors = {}, []
+    with GraphSession(store_path) as s:
+        with s.service(max_batch=8, max_wait_ms=20.0, max_inflight=2,
+                       memoize=False) as svc:
+            def client(tid):
+                try:
+                    futs = [(i, svc.submit(app, **kw))
+                            for i, (app, kw) in enumerate(queries)
+                            if i % 8 == tid]
+                    for i, f in futs:
+                        answers[i] = f.result(timeout=300).values
+                except BaseException as exc:  # noqa: BLE001 — checked below
+                    errors.append(exc)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        assert not errors and not any(t.is_alive() for t in threads)
+        for i, (app, kw) in enumerate(queries):
+            if app == "ppr":
+                want = s.run_batch("ppr", sources=[kw["seed"]],
+                                   max_iters=10)[0].values
+                np.testing.assert_allclose(answers[i], want, rtol=PPR_RTOL,
+                                           atol=0)
+            else:
+                want = s.run(app, **kw).values
+                np.testing.assert_array_equal(answers[i], want)

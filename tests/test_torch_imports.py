@@ -18,6 +18,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch, repro_torch.session, repro_torch.state\n"
         "import repro_torch.kernels.spmv.ops, repro_torch.kernels.spmv.cuda\n"
+        "import repro_torch.serve.graph_service, repro_torch.obs.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -54,11 +55,16 @@ def test_config_validation_and_env(monkeypatch):
     assert (cfg.use_kernel, cfg.prefetch_depth) == (False, 3)
 
 
+def _service_attach_hub(s):
+    with s.service() as svc:
+        svc.attach_hub(None)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.run_batch("sssp", sources=[0, 1]), "A6"),
+    (lambda s: s.run_batch("lp", sources=[0]), "A7"),
     (lambda s: s.run_incremental("sssp", prev=None), "A5b"),
     (lambda s: s.apply_mutations(inserts=[(0, 1)]), "A5b"),
-    (lambda s: s.service(), "A8"),
+    (_service_attach_hub, "A8"),
     (lambda s: s.attach_hub(None), "A8"),
 ])
 def test_unported_session_surfaces_raise(graph_store, call, item):
