@@ -12,14 +12,17 @@ Run from the root of the repository, on a machine with a CUDA GPU and
 2. data    — Graph500 RMAT (a, b, c = .57, .19, .19, seed 0) written as an
    edge list and preprocessed with ``preprocess_graph``'s defaults into a
    temporary directory;
-3. kernels — on every shard of the store, the four kernels against their
-   plain torch versions for all 5 semirings x {float32, float16, int8} edge
-   values: the single-column ones (K = 1) and the batched ones at
-   K = ``BATCH_K`` (16), plus K = 3 and 64 on the first shards; then each
-   kernel timed over one sweep of the store (every shard once) — its device
-   time from torch.profiler, CUDA-event time beside it — next to its byte
-   bound, its plain version and one PyTorch library call computing the same
-   function;
+3. kernels — on every shard of the store, the four ELL kernels against
+   their plain torch versions for all 5 semirings x {float32, float16, int8}
+   edge values: the single-column ones (K = 1) and the batched ones at
+   K = ``BATCH_K`` (16), plus K = 3 and 64 on the first shards; the same
+   edges cut into a 2-D tiling (D = S = 2 destination blocks x source
+   ranges, local cols, width 128) and ``ell_gather_fold`` (B4) held on every
+   tile; then each kernel timed over
+   one sweep of the store (every shard once; B4: every tile once) — its
+   device time from torch.profiler, CUDA-event time beside it — next to its
+   byte bound, its plain version and one PyTorch library call computing the
+   same function;
 4. main path — ``GraphSession(store)`` (device "cuda") runs pagerank, sssp,
    bfs and cc through the fused kernel, through the gather + fold kernel,
    and with ``use_kernel=False``; bfs again at prefetch depth 2.  Exact apps
@@ -34,7 +37,18 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    runners sweeping at once (ppr has an engine of its own); every sssp/bfs
    answer must equal its ``run_batch`` column bitwise, ppr to
    ``PPR_RTOL``, and the kernels' launches must equal the shards the
-   service's sweeps processed.
+   service's sweeps processed;
+7. multi-device — ``GraphSession(store, num_devices=2, device=[cuda:0,
+   cuda:0])`` (two lanes on the one card, each its own stream and cache
+   partition) runs the four apps and ``run_batch("sssp")`` at K = 16, equal
+   to phases 4 and 5 (PageRank to ``PR_RTOL``), and sssp and its batch again
+   through the gather + fold kernels (B2, B3); ``DistributedVSW`` on
+   ``partition_for_mesh`` of the same edges at D = 2 runs cc, sssp, bfs
+   (bitwise against phase 4) and pagerank (to ``PR_RTOL``); ``spmv_2d`` on
+   the phase-3 tiling at D = S = 2 for plus_times and min_plus, against its
+   plain version and the 1-D ``ops.ell_spmv`` of the same graph.  Each
+   run's seconds are printed beside the single-lane ones, and each kernel's
+   launches must equal the shards, lane-iterations or tiles it processed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -51,6 +65,7 @@ import tempfile
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -73,7 +88,10 @@ KERNEL_SOURCE = "src/repro_torch/kernels/spmv/csrc/ell_spmv.cu"
 REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
             "ell_fold": "src/repro/kernels/spmv/spmv.py:172",
             "ell_spmv_fused_batch": "src/repro/kernels/spmv/spmv.py:328",
-            "ell_fold_batch": "src/repro/kernels/spmv/spmv.py:221"}
+            "ell_fold_batch": "src/repro/kernels/spmv/spmv.py:221",
+            "ell_gather_fold": "src/repro/kernels/spmv/spmv.py:276"}
+LANES = 2                      # phase 7: lanes, and the D = S of the tiling
+TILE_WIDTH = 128               # ELL width of the 2-D tiles
 
 
 def log(msg: str) -> None:
@@ -97,24 +115,54 @@ def check(cond: bool, what: str) -> None:
 
 
 # --------------------------------------------------------------------------
-def phase_data(tmp: Path, scale: int, edge_factor: int):
+def phase_data(tmp: Path, scale: int, edge_factor: int, pool):
+    """-> (store, layouts): the preprocessed store, and futures on ``pool``
+    for the host arrays phases 3 and 7 lay the same edges out in, built
+    while the store is preprocessed: ``layouts["tiles"]`` (``tile_ells``)
+    and ``layouts["mesh"][D]`` (``partition_for_mesh`` at D = 1 and
+    LANES), each as ``(result, seconds)``."""
+    import numpy as np
+
+    from repro_torch.core.distributed import partition_for_mesh
     from repro_torch.graph.generate import rmat_edges
     from repro_torch.graph.preprocess import preprocess_graph
     from repro_torch.graph.storage import write_edge_list
 
+    chunks = []
+
+    def keep(gen):
+        for chunk in gen:
+            chunks.append(chunk)
+            yield chunk
+
     t0 = time.perf_counter()
-    meta = write_edge_list(tmp / "edges", rmat_edges(
-        scale, edge_factor, a=0.57, b=0.19, c=0.19, seed=0))
+    meta = write_edge_list(tmp / "edges", keep(rmat_edges(
+        scale, edge_factor, a=0.57, b=0.19, c=0.19, seed=0)))
+    src = np.concatenate([c[0] for c in chunks])
+    dst = np.concatenate([c[1] for c in chunks])
+    del chunks
+    n = meta["num_vertices"]
+    layouts = dict(tiles=pool.submit(_timed, tile_ells, src, dst, n),
+                   mesh={D: pool.submit(_timed, partition_for_mesh, src, dst,
+                                        n, D) for D in (LANES, 1)})
     t1 = time.perf_counter()
     store = preprocess_graph(str(tmp / "edges"), str(tmp / "store"))
     t2 = time.perf_counter()
     shutil.rmtree(tmp / "edges")
     disk = sum(f.stat().st_size for f in (tmp / "store").iterdir())
+    check(store.num_vertices == n, f"store has {store.num_vertices} "
+                                   f"vertices, the edge list {n}")
     log(f"data: rmat scale={scale} edge_factor={edge_factor} "
         f"|V|={meta['num_vertices']} |E|={meta['num_edges']} "
         f"shards={store.num_shards} generate+write_s={t1 - t0:.1f} "
         f"preprocess_s={t2 - t1:.1f} store_bytes={disk}")
-    return store
+    return store, layouts
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def _compare(torch, got, want, plus: bool) -> tuple[bool, float]:
@@ -127,9 +175,112 @@ def _compare(torch, got, want, plus: bool) -> tuple[bool, float]:
     return ok, float(diff.max())
 
 
-def phase_kernels(torch, store, dev):
-    """Hold the kernels against their plain versions on every shard, then
-    time them over one sweep of the store.  Returns the kernel records."""
+def tile_ells(src, dst, n: int) -> dict:
+    """The edges as a D x S = LANES x LANES 2-D tiling, the layout of
+    ``spmv_2d``: tile (d, s) holds the edges into destination block d from
+    source range s, as blocked-ELL of width ``TILE_WIDTH`` whose cols are
+    local to the source range (``build_csr_shards`` + ``csr_to_ell``, on
+    the host).  The blocks are ``ceil(n / LANES)`` long, so the last one
+    may reach past n.  -> {(d, s): ELLShard}."""
+    from repro_torch.core.shards import build_csr_shards, csr_to_ell
+
+    per = vb = -(-n // LANES)
+    ells = {}
+    for d in range(LANES):
+        into = (dst // per) == d
+        for s in range(LANES):
+            m = into & ((src // vb) == s)
+            csr = build_csr_shards(src[m] - s * vb, dst[m] - d * per, per,
+                                   threshold_edge_num=1 << 62)[0]
+            ells[d, s] = csr_to_ell(csr, max_width=TILE_WIDTH)
+            check(ells[d, s].shape[1] == TILE_WIDTH,
+                  f"tile width {ells[d, s].shape[1]}")
+    return ells
+
+
+def build_tiles(torch, layouts, n: int, dev) -> dict:
+    """``tile_ells``' tiles stacked on the card as ``cols``/``unit``
+    [D, S, R, W] (unit edge values) and ``row_map`` [D, S, R], with one
+    dict per tile for the kernel phase (its slices of an [n] frontier are
+    shorter than ``vb`` where the block reaches past n; spmv_2d takes a
+    frontier padded to ``n_pad``)."""
+    ells, host_s = layouts["tiles"].result()
+    t0 = time.perf_counter()
+    per = vb = -(-n // LANES)
+    parts = {key: tuple(torch.from_numpy(a).to(dev) for a in
+                        (ell.cols, ell.vals, ell.row_map))
+             for key, ell in ells.items()}
+    del ells
+    R = max(p[0].shape[0] for p in parts.values())
+    shape = (LANES, LANES, R, TILE_WIDTH)
+    cols = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    unit = torch.zeros(shape, dtype=torch.float32, device=dev)
+    row_map = torch.zeros(shape[:3], dtype=torch.int32, device=dev)
+    tiles = []
+    for (d, s), (c, v, rm) in sorted(parts.items()):
+        r = c.shape[0]
+        cols[d, s, :r], unit[d, s, :r], row_map[d, s, :r] = c, v, rm
+        valid = c >= 0
+        tiles.append(dict(
+            d=d, s=s, cols=cols[d, s], unit=unit[d, s], rows=R,
+            slots=R * TILE_WIDTH, valid=int(valid.sum()),
+            distinct=int(torch.unique(c[valid]).numel()), vb=vb))
+    del parts
+    log(f"tiles: {LANES} x {LANES} tiles [R={R}, W={TILE_WIDTH}] of "
+        f"{per} destination rows x {vb} sources, built on the host in "
+        f"{host_s:.1f}s (beside preprocessing), on the card in "
+        f"{time.perf_counter() - t0:.1f}s; valid slots "
+        f"{[t['valid'] for t in tiles]}, distinct sources "
+        f"{[t['distinct'] for t in tiles]}")
+    return dict(cols=cols, unit=unit, row_map=row_map, tiles=tiles,
+                n_pad=per * LANES)
+
+
+def _quantized(torch, w, dtype: str):
+    """``w`` (>= 0, 0 at padding) as ``dtype`` edge values + (scale, zero),
+    by ``quantize_edge_vals``' formulas, on the card."""
+    import numpy as np
+
+    if dtype == "float32":
+        return w, (1.0, 0.0)
+    if dtype == "float16":
+        return w.half(), (1.0, 0.0)
+    scale = float(np.float32(float(w.max()) / 255.0))
+    zero = -128.0  # rint(-128 - vmin / scale) with vmin = 0
+    q = torch.clamp(torch.round(w / scale + zero), -128, 127)
+    return q.to(torch.int8), (scale, zero)
+
+
+def check_gather_fold(torch, tiling, x, x_inf, gen, hold) -> None:
+    """B4 against its plain version on every tile, 5 semirings x 3 dtypes
+    of random weights.  Keeps each tile's float16 and int8 values for the
+    timings."""
+    from repro_torch.kernels.spmv import cuda, ref
+
+    for t in tiling["tiles"]:
+        cols, vb = t["cols"], t["vb"]
+        valid = cols >= 0
+        w = torch.where(valid, torch.rand(cols.shape, generator=gen,
+                                          device=cols.device) * 9 + 0.5, 0.0)
+        for dtype in DTYPES:
+            vals, qp = _quantized(torch, w, dtype)
+            t[dtype] = (vals, qp)
+            deq = ref.maybe_dequantize(vals, qp)
+            for sem in SEMIS:
+                plus = sem.startswith("plus")
+                full = (x if plus else x_inf)[t["s"] * vb:(t["s"] + 1) * vb]
+                hold("ell_gather_fold",
+                     cuda.ell_gather_fold(full, cols, vals, sem, qp),
+                     ref.ell_gather_fold_ref(full, cols, deq, sem), plus,
+                     f"tile ({t['d']}, {t['s']}) ({sem}, {dtype})")
+        t["float32"] = (t["unit"], (1.0, 0.0))
+        del w
+
+
+def phase_kernels(torch, store, dev, tiling):
+    """Hold the kernels against their plain versions on every shard (B4 on
+    every tile), then time them over one sweep of the store (B4: of the
+    tiling).  Returns the kernel records."""
     import numpy as np
 
     from repro_torch.core.shards import quantize_shard
@@ -214,15 +365,16 @@ def phase_kernels(torch, store, dev):
             distinct=int(torch.unique(cols[cols >= 0]).numel()),
             float32=(unit, (1.0, 0.0)), float16=quantized["float16"],
             int8=quantized["int8"]))
+    check_gather_fold(torch, tiling, x, x_inf, gen, hold)
     torch.cuda.synchronize()
     log(f"kernels: {checks} checks against the plain versions on "
         f"{store.num_shards} shards x {len(SEMIS)} semirings x "
         f"{len(DTYPES)} dtypes (K = 1 and {BATCH_K} on every shard, K = "
-        f"{EXTRA_KS} on {EXTRA_SHARDS}) passed in "
-        f"{time.perf_counter() - t0:.1f}s; max abs err {err}")
+        f"{EXTRA_KS} on {EXTRA_SHARDS}; B4 on {len(tiling['tiles'])} tiles) "
+        f"passed in {time.perf_counter() - t0:.1f}s; max abs err {err}")
     x16 = batch_x[BATCH_K][0]
     del batch_x
-    return time_kernels(torch, resident, x, x16, n, err)
+    return time_kernels(torch, resident, tiling["tiles"], x, x16, n, err)
 
 
 def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
@@ -294,12 +446,13 @@ def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
     """Least bytes one call on shard ``s`` moves: each input read once, the
     output written once.  cols (4 B a slot), the edge values (``val_bytes``
     a slot; the *_src semirings never read them), the sources — the
-    frontier's rows at the shard's distinct source vertices (fused), every
-    slot of the gathered ``xg`` (ell_fold, which reads it whole), or ``xg``
-    at the valid slots only (ell_fold_batch reads no source for a padding
-    slot) — and the [R, k] float32 partials."""
+    frontier's rows at the shard's distinct source vertices (fused; B4: the
+    tile's distinct local sources), every slot of the gathered ``xg``
+    (ell_fold, which reads it whole), or ``xg`` at the valid slots only
+    (ell_fold_batch reads no source for a padding slot) — and the [R, k]
+    float32 partials."""
     edges = s["slots"] * (4 + val_bytes)
-    if name.startswith("ell_spmv_fused"):
+    if name.startswith("ell_spmv_fused") or name == "ell_gather_fold":
         src = 4 * k * s["distinct"]
     elif name == "ell_fold":
         src = 4 * s["slots"]
@@ -308,12 +461,18 @@ def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
     return edges + src + 4 * k * s["rows"]
 
 
-def time_kernels(torch, resident, x, x16, n, err):
+def time_kernels(torch, resident, tiles, x, x16, n, err):
     from repro_torch.kernels.spmv import cuda, ref
 
     sem = "plus_src"  # PageRank's semiring, over the store's float32 vals
     csrs = [_csr(torch, s, n) for s in resident]
     xcol = x[:, None]
+    # each tile's source block, of the frontier padded with zeros to the
+    # tiling's LANES * vb vertices (the sparse product wants all vb rows)
+    xp = torch.cat([x, x.new_zeros(LANES * tiles[0]["vb"] - n)])
+    for t in tiles:
+        t["x"] = xp[t["s"] * t["vb"]:(t["s"] + 1) * t["vb"]]
+    tile_csrs = [_csr(torch, t, t["vb"]) for t in tiles]
     sweeps = {
         "ell_spmv_fused": (
             [lambda s=s: cuda.ell_spmv_fused(x, s["cols"], s["unit"], sem)
@@ -338,6 +497,15 @@ def time_kernels(torch, resident, x, x16, n, err):
                                                 s["unit"], s["cols"], sem)
              for s in resident],
             [lambda c=c: torch.sparse.mm(c, x16) for c in csrs]),
+        "ell_gather_fold": (
+            [lambda t=t: cuda.ell_gather_fold(t["x"], t["cols"], t["unit"],
+                                              sem) for t in tiles],
+            [lambda t=t: ref.ell_gather_fold_ref(t["x"], t["cols"],
+                                                 t["unit"], sem)
+             for t in tiles],
+            # a CSR sparse product of the tile's [R, VB] by its block
+            [lambda c=c, t=t: torch.sparse.mm(c, t["x"][:, None])
+             for c, t in zip(tile_csrs, tiles)]),
     }
     # the library calls must compute what the kernels compute
     s0 = resident[0]
@@ -354,6 +522,12 @@ def time_kernels(torch, resident, x, x16, n, err):
     check(torch.allclose(torch.einsum("rw,rwk->rk", s0["unit"], xg16), k0,
                          rtol=PLUS_RTOL, atol=0),
           "einsum differs from ell_fold_batch")
+    t0 = tiles[0]
+    check(torch.allclose(torch.sparse.mm(tile_csrs[0], t0["x"][:, None]),
+                         cuda.ell_gather_fold(t0["x"], t0["cols"], t0["unit"],
+                                              sem),
+                         rtol=PLUS_RTOL, atol=0),
+          "sparse.mm differs from ell_gather_fold")
     del xg16
     times = {name: _paired(torch, *calls) for name, calls in sweeps.items()}
     del sweeps
@@ -392,7 +566,8 @@ def time_kernels(torch, resident, x, x16, n, err):
     records = {}
     for name, t in times.items():
         k = BATCH_K if name.endswith("_batch") else 1
-        nbytes = sum(bound_bytes(name, s, 0, k) for s in resident)
+        items = tiles if name == "ell_gather_fold" else resident
+        nbytes = sum(bound_bytes(name, s, 0, k) for s in items)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         ms = min(t["k1"], t["k2"])
         records[name] = dict(
@@ -401,18 +576,25 @@ def time_kernels(torch, resident, x, x16, n, err):
             max_abs_err=err[name], ms=ms, plain_ms=min(t["p1"], t["p2"]),
             bound_ms=bound, bound_by="bytes", library_ms=t["lib"])
         log(f"timing: {name} K={k} {sem} float32, one sweep = "
-            f"{len(resident)} launches, device ms (events ms): kernel "
+            f"{len(items)} launches, device ms (events ms): kernel "
             f"{t['k1']:.4f} ({t['k1e']:.4f}) / {t['k2']:.4f} "
             f"({t['k2e']:.4f}), plain {t['p1']:.4f} ({t['p1e']:.4f}) / "
             f"{t['p2']:.4f} ({t['p2e']:.4f}), library {t['lib']:.4f} "
             f"({t['libe']:.4f}); bound {bound:.4f} ms ({nbytes} bytes at "
-            f"3.35 TB/s); {nbytes / ms / 1e9:.2f} TB/s")
+            f"3.35 TB/s); {nbytes / ms / 1e9:.2f} TB/s, {bound / ms:.0%} of "
+            "the bound")
     # SSSP/BFS's semiring reads the edge values: the store's float32 unit
     # values, and the float16/int8 ones a weighted store would hold
     sem = "min_plus"
     for dtype, val_bytes in (("float32", 4), ("float16", 2), ("int8", 1)):
-        for name in ("ell_spmv_fused", "ell_fold", "ell_spmv_fused_batch"):
-            if name == "ell_spmv_fused":
+        for name in ("ell_spmv_fused", "ell_fold", "ell_spmv_fused_batch",
+                     "ell_gather_fold"):
+            items = tiles if name == "ell_gather_fold" else resident
+            if name == "ell_gather_fold":
+                calls = [lambda t=t: cuda.ell_gather_fold(
+                    t["x"], t["cols"], t[dtype][0], sem, t[dtype][1])
+                    for t in tiles]
+            elif name == "ell_spmv_fused":
                 calls = [lambda s=s: cuda.ell_spmv_fused(
                     x, s["cols"], s[dtype][0], sem, s[dtype][1])
                     for s in resident]
@@ -427,11 +609,15 @@ def time_kernels(torch, resident, x, x16, n, err):
             ms, ev = _time_sweep(torch, calls)
             k = BATCH_K if name.endswith("_batch") else 1
             nbytes = sum(bound_bytes(name, s, val_bytes, k)
-                         for s in resident)
+                         for s in items)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
             log(f"timing: {name} K={k} {sem} {dtype} vals, one sweep: "
                 f"kernel {ms:.4f} ms device ({ev:.4f} events), bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-                f"{nbytes / ms / 1e9:.2f} TB/s")
+                f"{bound:.4f} ms, {nbytes / ms / 1e9:.2f} TB/s, "
+                f"{bound / ms:.0%} of the bound")
+    for t in tiles:  # the timings' values; phase 7 keeps cols/unit only
+        for key in ("x", "float16", "int8", "float32"):
+            t.pop(key, None)
     return records
 
 
@@ -561,10 +747,11 @@ def _max_rel_err(np, got, want) -> float:
     return float(rel.max())
 
 
-def phase_batched(torch, store_path: str, solo) -> dict:
+def phase_batched(torch, store_path: str, solo):
     """The batched path and the service on one warm GraphSession.  ``solo``
     holds the main path's results (sssp/bfs from source 0).  Returns the
-    launch counts of the run_batch phase."""
+    launch counts of the run_batch phase and ``(sources, the fused sssp
+    columns)`` for phase 7."""
     import numpy as np
 
     from repro_torch.session import GraphSession
@@ -585,7 +772,7 @@ def phase_batched(torch, store_path: str, solo) -> dict:
                     lambda: (s.run_batch("bfs", sources=sources),
                              s.last_batch_result)[1])
         run_service(torch, s, sources, cols)
-    return launches
+    return launches, (sources, cols["sssp"])
 
 
 def run_batch_path(torch, s, sources, solo):
@@ -736,6 +923,219 @@ def run_service(torch, s, sources, cols) -> None:
         f"{ppr_err:.3e}")
 
 
+# --------------------------------------------------------------------------
+def phase_multi(torch, dev, store_path: str, mesh, n: int, tiling, solo,
+                batch) -> int:
+    """The multi-device engines on LANES lanes of ``dev`` (one card: the
+    lanes share it, each with its own streams).  ``solo`` holds phase 4's
+    results by (variant, app), ``batch`` phase 5's ``(sources, fused sssp
+    columns)``.  Returns B4's launches in the spmv_2d runs."""
+    lanes = [dev] * LANES
+    multi_session(torch, store_path, lanes, solo, batch)
+    torch.cuda.empty_cache()
+    return multi_resident(torch, dev, mesh, n, tiling, solo)
+
+
+def multi_session(torch, store_path, lanes, solo, batch) -> None:
+    """GraphSession(num_devices=LANES) against the single-lane phases:
+    exact apps and the batch's columns bitwise, PageRank to PR_RTOL, equal
+    iteration counts; per-lane disk bytes sum to each iteration's total and
+    B1 runs once per shard the lanes processed.  Then sssp and its batch
+    through the gather + fold kernels (B2, B3), held the same way."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.session import GraphSession
+
+    runs = [("pagerank", dict(max_iters=10)), ("sssp", dict(source=0)),
+            ("bfs", dict(source=0)), ("cc", {})]
+    sources, want_cols = batch
+    with GraphSession(store_path, num_devices=LANES, device=lanes,
+                      cache_mode=1, cache_budget_bytes=CACHE_BUDGET) as s:
+        cuda.reset_launches()
+        shards = 0
+        for app, kw in runs:
+            r = s.run(app, **kw)
+            one = solo["fused", app]
+            shards += sum(h.shards_processed for h in r.history)
+            per_lane = np.sum([h.device_disk_bytes for h in r.history], 0)
+            check(all(len(h.device_disk_bytes) == LANES
+                      and sum(h.device_disk_bytes) == h.disk_bytes
+                      for h in r.history),
+                  f"{app}: per-lane disk bytes do not sum to the total")
+            check(r.iterations == one.iterations,
+                  f"{app}: {r.iterations} iterations on {LANES} lanes, "
+                  f"{one.iterations} on one")
+            if app == "pagerank":
+                rel = _max_rel_err(np, r.values, one.values)
+                check(rel <= PR_RTOL, f"pagerank on {LANES} lanes off by "
+                                      f"{rel}")
+                agree = f"max rel err {rel:.3e} (rtol {PR_RTOL})"
+            else:
+                check(np.array_equal(r.values, one.values),
+                      f"{app} on {LANES} lanes differs from one lane")
+                agree = "bitwise equal"
+            log(f"multi: session D={LANES} {app:8s} "
+                f"iterations={r.iterations} seconds={r.total_seconds:.3f} "
+                f"(D = 1: {one.total_seconds:.3f}) lane_disk_bytes="
+                f"{per_lane.tolist()} fetch_s="
+                f"{sum(h.fetch_seconds for h in r.history):.3f}; {agree}")
+        launches = dict(cuda.launches)
+        check(launches["ell_spmv_fused"] == shards > 0,
+              f"session on {LANES} lanes: launches {launches}, expected "
+              f"{shards} of ell_spmv_fused (one per processed shard)")
+        cuda.reset_launches()
+        cols = s.run_batch("sssp", sources=sources)
+        r = s.last_batch_result
+        launches = dict(cuda.launches)
+        shards = sum(h.shards_processed for h in r.history)
+        check(launches["ell_spmv_fused_batch"] == shards > 0,
+              f"run_batch on {LANES} lanes: launches {launches}, expected "
+              f"{shards} of ell_spmv_fused_batch")
+        for k, (got, want) in enumerate(zip(cols, want_cols, strict=True)):
+            check(np.array_equal(got.values, want.values)
+                  and got.iterations == want.iterations,
+                  f"run_batch sssp column {k} on {LANES} lanes differs "
+                  "from phase 5's")
+        report = s.cache_report()
+        check(report["policy"] == "partitioned"
+              and report["num_partitions"] == LANES,
+              f"cache report {report['policy']} {report['num_partitions']}")
+        log(f"multi: session D={LANES} run_batch sssp K={len(sources)} "
+            f"iterations={r.iterations} seconds={r.total_seconds:.3f}; all "
+            f"{len(sources)} columns equal phase 5's; partition cached bytes "
+            f"{[p['cached_bytes'] for p in report['partitions']]}; "
+            f"launches {launches}")
+        # the lanes' gather + fold route: B2 for a run, B3 for a batch
+        cfg = s.config.replace(fused_gather=False)
+        cuda.reset_launches()
+        rs = s.run("sssp", source=0, config=cfg)
+        b2 = sum(h.shards_processed for h in rs.history)
+        one = solo["gather+fold", "sssp"]
+        check(np.array_equal(rs.values, one.values)
+              and rs.iterations == one.iterations,
+              f"sssp through gather + fold on {LANES} lanes differs from "
+              "phase 4's")
+        gcols = s.run_batch("sssp", sources=sources, config=cfg)
+        rb = s.last_batch_result
+        b3 = sum(h.shards_processed for h in rb.history)
+        fold_launches = dict(cuda.launches)
+        check(fold_launches["ell_fold"] == b2 > 0
+              and fold_launches["ell_fold_batch"] == b3 > 0
+              and fold_launches["ell_spmv_fused"]
+              + fold_launches["ell_spmv_fused_batch"] == 0,
+              f"gather + fold on {LANES} lanes: launches {fold_launches}, "
+              f"expected {b2} of ell_fold and {b3} of ell_fold_batch")
+        for k, (got, want) in enumerate(zip(gcols, want_cols, strict=True)):
+            check(np.array_equal(got.values, want.values)
+                  and got.iterations == want.iterations,
+                  f"gather + fold run_batch sssp column {k} on {LANES} "
+                  "lanes differs from phase 5's")
+        log(f"multi: session D={LANES} gather+fold sssp "
+            f"seconds={rs.total_seconds:.3f} (D = 1: {one.total_seconds:.3f}"
+            f"), run_batch sssp K={len(sources)} "
+            f"seconds={rb.total_seconds:.3f}; equal to phases 4 and 5; "
+            f"launches {fold_launches}")
+
+
+def multi_resident(torch, dev, mesh, n, tiling, solo) -> int:
+    """DistributedVSW at D = 1 and LANES on ``partition_for_mesh`` of the
+    edges (``mesh``: phase 2's futures), then spmv_2d on the phase-3 tiling
+    against its plain version and the 1-D ``ops.ell_spmv``.  Returns B4's
+    launches in the spmv_2d runs."""
+    import numpy as np
+
+    from repro_torch.core.apps import get_app
+    from repro_torch.core.distributed import DistributedVSW, spmv_2d
+    from repro_torch.kernels.spmv import cuda, ops
+
+    graphs, secs = {}, {}
+    for D in (1, LANES):
+        graphs[D], secs[D] = mesh[D].result()
+    took = ", ".join(f"{t:.1f}s at D = {D}" for D, t in secs.items())
+    log(f"multi: partition_for_mesh built on the host (beside "
+        f"preprocessing) in {took}; [D, R, W] = "
+        f"{[list(g.cols.shape) for g in graphs.values()]}")
+    runs = [("cc", {}, 200), ("sssp", dict(source=0), 200),
+            ("bfs", dict(source=0), 200), ("pagerank", {}, 10)]
+    for app, kw, iters in runs:
+        got = {}
+        for D, g in graphs.items():
+            eng = DistributedVSW(g, get_app(app, **kw), [dev] * D)
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values, it = eng.run(iters)
+            torch.cuda.synchronize()
+            got[D] = (values, it, time.perf_counter() - t0)
+            launches = dict(cuda.launches)
+            check(launches["ell_spmv_fused"] == eng.lane_sweeps > 0,
+                  f"DistributedVSW D={D} {app}: launches {launches}, "
+                  f"expected {eng.lane_sweeps} (one per lane a sweep)")
+            del eng
+        (v1, it1, s1), (v2, it2, s2) = got[1], got[LANES]
+        check(it1 == it2, f"DistributedVSW {app}: {it2} iterations at D = "
+                          f"{LANES}, {it1} at D = 1")
+        if app == "pagerank":
+            rel = _max_rel_err(np, v2, v1)
+            check(rel <= PR_RTOL, f"DistributedVSW pagerank off by {rel}")
+            agree = f"max rel err {rel:.3e} against D = 1 (rtol {PR_RTOL})"
+        else:
+            one = solo["fused", app]
+            check(np.array_equal(v2, one.values)
+                  and np.array_equal(v1, one.values),
+                  f"DistributedVSW {app} differs from phase 4's session run")
+            agree = (f"D = 1 and {LANES} bitwise equal to phase 4 "
+                     f"({one.iterations} iterations there)")
+        log(f"multi: DistributedVSW {app:8s} iterations={it2} "
+            f"seconds D={LANES}: {s2:.3f} (D = 1: {s1:.3f}); {agree}")
+
+    # spmv_2d on the LANES x LANES tiling against its plain version and the
+    # 1-D product of the same edges (partition_for_mesh at D = 1)
+    g1 = graphs[1]
+    del graphs
+    one_d = [torch.from_numpy(a[0]).to(dev)
+             for a in (g1.cols, g1.vals, g1.row_map)]
+    del g1
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand(tiling["n_pad"], generator=gen, device=dev)
+    grid = [[dev] * LANES for _ in range(LANES)]
+    per = tiling["n_pad"] // LANES
+    b4 = 0
+    for sem in ("plus_times", "min_plus"):
+        plus = sem.startswith("plus")
+        args = (x, tiling["cols"], tiling["unit"], tiling["row_map"], sem)
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = spmv_2d(*args, devices=grid)
+        torch.cuda.synchronize()
+        t_2d = time.perf_counter() - t0
+        launches = dict(cuda.launches)
+        b4 += launches["ell_gather_fold"]
+        check(launches["ell_gather_fold"] == LANES * LANES,
+              f"spmv_2d {sem}: launches {launches}, expected "
+              f"{LANES * LANES} of ell_gather_fold (one a tile)")
+        plain = spmv_2d(*args, devices=grid, use_kernel=False)
+        ok, e_plain = _compare(torch, got, plain, plus)
+        check(ok, f"spmv_2d {sem} differs from its plain version by "
+                  f"{e_plain}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ops.ell_spmv(x[:n], one_d[0], one_d[1], one_d[2],
+                            one_d[0].shape[0], sem)[:n]
+        torch.cuda.synchronize()
+        t_1d = time.perf_counter() - t0
+        ok, e_1d = _compare(torch, got[:, :per].reshape(-1)[:n], want,
+                            plus)
+        check(ok, f"spmv_2d {sem} differs from the 1-D ell_spmv by {e_1d}")
+        log(f"multi: spmv_2d {sem} on {LANES} x {LANES} tiles "
+            f"seconds={t_2d:.4f} (1-D ell_spmv: {t_1d:.4f}); max abs err "
+            f"{e_plain} against its plain version, {e_1d} against the 1-D "
+            f"product; launches {launches}")
+    return b4
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -756,6 +1156,7 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    started = time.perf_counter()
     build: dict = {}
 
     def run_build():
@@ -769,24 +1170,39 @@ def main() -> int:
     build_thread = threading.Thread(target=run_build, name="nvcc")
     build_thread.start()
     tmp = Path(tempfile.mkdtemp(prefix="graphmp_chip_smoke_"))
+    # host-side layouts of phases 3 and 7, built while phase 2 preprocesses
+    pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="layouts")
     try:
-        store = phase_data(tmp, args.scale, args.edge_factor)
+        store, layouts = phase_data(tmp, args.scale, args.edge_factor, pool)
+        n = store.num_vertices
         build_thread.join()
         if "error" in build:
             raise build["error"]
         log(f"device: kernels built in {build['seconds']:.1f}s "
             f"({cuda.library_path().name})")
-        records = phase_kernels(torch, store, dev)
+        tiling = build_tiles(torch, layouts, n, dev)
+        records = phase_kernels(torch, store, dev, tiling)
         torch.cuda.empty_cache()
         launches, solo = phase_main_path(torch, str(store.path))
         torch.cuda.empty_cache()
-        batch_launches = phase_batched(torch, str(store.path), solo)
+        batch_launches, batch = phase_batched(torch, str(store.path), solo)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches["ell_gather_fold"] = phase_multi(
+            torch, torch.device("cuda", 0), str(store.path),
+            layouts["mesh"], n, tiling, solo, batch)
+        log(f"multi: all comparisons passed in "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
+        pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
+    # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4)
     for name, rec in records.items():
         rec["launches"] = (batch_launches if name.endswith("_batch")
                            else launches)[name]
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": list(records.values())}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,8 @@ import warnings
 import zlib
 from collections import OrderedDict
 
+import numpy as np
+
 try:
     import zstandard
 except ImportError:  # optional: compressed tiers fall back to stdlib zlib
@@ -520,3 +522,115 @@ class CompressedShardCache:
                 "measured_ratio": self.measured_ratio(),
             }
 
+
+# ---------------------------------------------------------------------------
+class PartitionedShardCache:
+    """Per-device slices of the edge cache under ONE global byte budget.
+
+    The multi-device engine (``repro_torch.core.distributed.ShardedVSWEngine``)
+    splits the shard schedule across device lanes; each lane's shards hash
+    to its own ``CompressedShardCache`` partition (``owner[p]`` names the
+    partition caching shard ``p``), so per-device prefetch lanes never
+    contend on one LRU and the Table-3 disk-byte accounting splits honestly
+    per device.  The partition budgets sum EXACTLY to the configured global
+    budget (partition 0 absorbs the remainder), keeping the strict-budget
+    invariant of the single cache.
+
+    The facade keeps the single-cache surface (``get`` / ``stats`` /
+    ``report`` / ``clear`` / ``audit`` / ``invalidate`` / ``cached_bytes``)
+    so ``GraphSession`` observability and the serving layer work unchanged;
+    ``stats`` aggregates the partition counters into one ``CacheStats``.
+    """
+
+    def __init__(self, store: ShardSource, owner, num_partitions: int,
+                 mode: int | str = "auto", budget_bytes: int = 1 << 30,
+                 hot_fraction: float = 0.5, promote_after: int = 2):
+        self.store = store
+        self.owner = np.asarray(owner, dtype=np.int64)
+        self.num_partitions = int(num_partitions)
+        if self.num_partitions < 1:
+            raise ValueError(
+                f"num_partitions must be >= 1, got {num_partitions!r}")
+        if self.owner.size and int(self.owner.max()) >= self.num_partitions:
+            raise ValueError(
+                f"owner maps shards to partition {int(self.owner.max())}, "
+                f"but only {self.num_partitions} partitions exist")
+        per = budget_bytes // self.num_partitions
+        budgets = ([budget_bytes - per * (self.num_partitions - 1)]
+                   + [per] * (self.num_partitions - 1))
+        self.parts = [
+            CompressedShardCache(store, mode=mode, budget_bytes=b,
+                                 hot_fraction=hot_fraction,
+                                 promote_after=promote_after)
+            for b in budgets
+        ]
+
+    def partition_for(self, shard_id: int) -> CompressedShardCache:
+        return self.parts[int(self.owner[shard_id])]
+
+    def get(self, shard_id: int) -> ELLShard:
+        return self.partition_for(shard_id).get(shard_id)
+
+    def invalidate(self, shard_ids=None) -> int:
+        return sum(p.invalidate(shard_ids) for p in self.parts)
+
+    # -- aggregated observability (single-cache surface) ----------------
+    @property
+    def mode(self):
+        return self.parts[0].mode
+
+    @property
+    def adaptive(self) -> bool:
+        return self.parts[0].adaptive
+
+    @property
+    def budget(self) -> int:
+        return sum(p.budget for p in self.parts)
+
+    @property
+    def cached_bytes(self) -> int:
+        return sum(p.cached_bytes for p in self.parts)
+
+    @property
+    def cached_shards(self) -> int:
+        return sum(p.cached_shards for p in self.parts)
+
+    @property
+    def stats(self) -> CacheStats:
+        """Fresh aggregate of every partition's counters (the partitions
+        keep their own live ``CacheStats``; mutate those, not this)."""
+        agg = CacheStats()
+        for part in self.parts:
+            s = part.stats
+            for f in dataclasses.fields(CacheStats):
+                setattr(agg, f.name, getattr(agg, f.name) + getattr(s, f.name))
+        return agg
+
+    def clear(self) -> None:
+        for p in self.parts:
+            p.clear()
+
+    def audit(self) -> int:
+        return sum(p.audit() for p in self.parts)
+
+    def report(self) -> dict:
+        """Aggregate + per-partition snapshot (``partitions`` holds one
+        ordinary cache report per device slice)."""
+        s = self.stats
+        return {
+            "policy": "partitioned",
+            "num_partitions": self.num_partitions,
+            "mode": self.mode,
+            "budget_bytes": self.budget,
+            "cached_bytes": self.cached_bytes,
+            "cached_shards": self.cached_shards,
+            "hits": s.hits,
+            "misses": s.misses,
+            "hit_ratio": s.hit_ratio,
+            "evictions": s.evictions,
+            "stale_drops": s.stale_drops,
+            "disk_bytes": s.disk_bytes,
+            "decompress_seconds": s.decompress_seconds,
+            "decode_seconds_saved": s.decode_seconds_saved,
+            "partitions": [p.report() for p in self.parts],
+        }

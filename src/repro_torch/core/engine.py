@@ -77,6 +77,31 @@ def pad_to_device(arr: np.ndarray, n_pad: int,
     return torch.from_numpy(padded).to(device)
 
 
+def stage_shard(shard: ELLShard, device: torch.device,
+                copy_stream: "torch.cuda.Stream | None" = None):
+    """One shard's arrays on ``device``.
+
+    -> ``(cols, vals, row_map, (scale, zero), ready)``.  On CUDA each array
+    goes through pinned host memory and ``non_blocking`` copies on
+    ``copy_stream`` (the prefetch stream, depth > 0) or the current stream
+    of ``device`` (depth 0); ``ready`` is an event recorded after the
+    copies, which the sweep makes its compute stream wait on.  ``ready`` is
+    None on the CPU.
+    """
+    arrays = [torch.from_numpy(a)
+              for a in (shard.cols, shard.vals, shard.row_map)]
+    qparams = (shard.val_scale, shard.val_zero)
+    if device.type != "cuda":
+        return (*arrays, qparams, None)
+    stream = copy_stream or torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        staged = [a.pin_memory().to(device, non_blocking=True)
+                  for a in arrays]
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return (*staged, qparams, ready)
+
+
 def _store_epoch(store) -> int:
     """Graph epoch of a store; frozen backends (no ``epoch``) sit at 0."""
     fn = getattr(store, "epoch", None)
@@ -147,8 +172,11 @@ class EngineConfig:
         Shards fetched ahead on a background thread (0 = synchronous,
         1 = double buffering).
     num_devices (``GRAPHMP_DEVICES``):
-        Devices one VSW iteration drives.  Only 1 is supported here; the
-        multi-device engine is ROADMAP A9.
+        Device lanes one VSW iteration drives.  Above 1, ``GraphSession``
+        runs ``core.distributed.ShardedVSWEngine``: each lane owns a
+        contiguous run of shards, its own cache partition, prefetch lane and
+        CUDA stream (``dist.context.make_data_devices`` says which device
+        each lane is on).
     """
 
     cache_mode: int | str = "auto"
@@ -211,10 +239,6 @@ class EngineConfig:
                 or self.num_devices < 1:
             raise ValueError(
                 f"num_devices must be an int >= 1, got {self.num_devices!r}")
-        if self.num_devices > 1:
-            raise NotImplementedError(
-                "num_devices > 1 needs the multi-device engine, which is not "
-                "ported yet (ROADMAP A9)")
 
     @classmethod
     def from_env(cls, **overrides) -> "EngineConfig":
@@ -260,6 +284,11 @@ class IterationStats:
     stall_seconds: float = 0.0  # time the compute loop waited on shard I/O
     fetch_seconds: float = 0.0  # fetch+stage time (overlapped when prefetching)
     decode_seconds_saved: float = 0.0  # decompression cost hot-tier hits skipped
+    # multi-device runs only (empty tuples otherwise): per-lane splits of the
+    # aggregates above, one entry per lane, summing to the aggregate
+    device_disk_bytes: tuple = ()
+    device_stall_seconds: tuple = ()
+    device_fetch_seconds: tuple = ()
 
 
 @dataclasses.dataclass
@@ -394,20 +423,15 @@ class VSWEngine:
         self._out_deg_dev = (
             out_deg_dev if out_deg_dev is not None
             else pad_to_device(self.out_deg, self.n_pad, self.device))
-        # host->device copies of prefetched shards run on their own stream
-        # so they overlap the SpMV on the compute stream
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda"
-                             and self.config.prefetch_depth > 0 else None)
         self._preloaded: dict[int, ELLShard] = {}
         if self.config.preload:
             for p in range(self.P):
-                self._preloaded[p] = self.cache.get(p)
+                self._preloaded[p] = self._fetch_shard(p)
         # ALL shard consumption goes through the pipeline — depth 0 is the
         # synchronous path, depth >= 1 prefetches + stages on a worker thread
-        self._pipeline = ShardPipeline(
-            self._get_shard, depth=self.config.prefetch_depth,
-            stage=self._stage, nbytes=ELLShard.decoded_nbytes)
+        # (the sharded engine builds one lane per device instead and leaves
+        # self._pipeline as None)
+        self._pipeline = self._make_pipeline()
         self.last_result: RunResult | None = None
         # serializes run() calls on this engine: concurrent clients sharing
         # one engine run back-to-back instead of interleaving pipeline stats
@@ -418,9 +442,10 @@ class VSWEngine:
     def from_session(cls, session, program: VertexProgram,
                      config: EngineConfig | None = None) -> "VSWEngine":
         """Build an engine that shares the session's cache + degree arrays."""
+        config = config or session.config
         return cls(
-            session.store, program, config or session.config,
-            device=session.device,
+            session.store, program, config,
+            device=session._lanes(config.num_devices),
             cache=session.cache,
             vertex_info=(session.in_deg, session.out_deg),
             blooms=session.blooms,
@@ -466,32 +491,32 @@ class VSWEngine:
                     f"must also replace jit_signature")
         return program
 
+    def _fetch_shard(self, p: int) -> ELLShard:
+        """Raw cache fetch (no preload shortcut): the seam that decides
+        which cache a shard comes from (the sharded engine's cache routes
+        it to the owning lane's partition)."""
+        return self.cache.get(p)
+
+    def _make_pipeline(self):
+        """Build the shard stream consumed by ``_sweep``."""
+        # host->device copies of prefetched shards run on their own stream
+        # so they overlap the SpMV on the compute stream
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda"
+                             and self.config.prefetch_depth > 0 else None)
+        return ShardPipeline(
+            self._get_shard, depth=self.config.prefetch_depth,
+            stage=self._stage, nbytes=ELLShard.decoded_nbytes)
+
     def _get_shard(self, p: int) -> ELLShard:
         if p in self._preloaded:
             return self._preloaded[p]
-        return self.cache.get(p)
+        return self._fetch_shard(p)
 
     def _stage(self, shard: ELLShard):
-        """Host->device staging; runs on the prefetch thread when depth > 0.
-
-        -> ``(cols, vals, row_map, (scale, zero), ready)``.  On CUDA each
-        array goes through pinned host memory and ``non_blocking`` copies on
-        the prefetch stream (depth > 0) or the current stream (depth 0);
-        ``ready`` is an event recorded after the copies, which ``_sweep``
-        makes the compute stream wait on.  ``ready`` is None on the CPU.
-        """
-        arrays = [torch.from_numpy(a)
-                  for a in (shard.cols, shard.vals, shard.row_map)]
-        qparams = (shard.val_scale, shard.val_zero)
-        if self.device.type != "cuda":
-            return (*arrays, qparams, None)
-        stream = self._copy_stream or torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(stream):
-            staged = [a.pin_memory().to(self.device, non_blocking=True)
-                      for a in arrays]
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return (*staged, qparams, ready)
+        """Host->device staging; runs on the prefetch thread when depth > 0
+        (see ``stage_shard``)."""
+        return stage_shard(shard, self.device, self._copy_stream)
 
     def _schedule(self, active_ids: np.ndarray | None,
                   active_ratio: float) -> tuple[list[int], bool]:
@@ -534,44 +559,52 @@ class VSWEngine:
         changed [n(, K)])``.  ``aux`` (a device [n_pad, K] tensor or None)
         and ``it`` (a device int32 scalar) reach a batched ``post`` only."""
         n = self.n
-        cfg = self.config
         dst = src.clone()
         for _p, shard, staged in self._pipeline.stream(schedule,
                                                        check=epoch_check):
-            cols, vals, row_map, qparams, ready = staged
-            if ready is not None:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(ready)
-                # the copies were allocated on the staging stream: tell the
-                # caching allocator the compute stream reads them, so their
-                # memory is not handed out again before the kernel is done
-                for t in (cols, vals, row_map):
-                    t.record_stream(compute)
-            R = cols.shape[0]
-            start = shard.start_vertex
-            num_rows = shard.end_vertex - start
-            spmv = ell_spmv_batch if self.batched else ell_spmv
-            seg = spmv(x, cols, vals, row_map, R, program.semiring,
-                       use_kernel=cfg.use_kernel, qparams=qparams,
-                       fused=cfg.fused_gather)
-            old = src[start:start + R]
-            if self.batched:
-                rows = torch.arange(start, start + R, device=self.device)
-                post_args = (seg, old, rows, n, None if aux is None
-                             else aux[start:start + R])
-                if program.wants_iteration:
-                    post_args += (it,)
-                new = program.post(*post_args)
-            else:
-                new = program.post(seg, old, n)
-            new = new.to(dst.dtype)
-            # The reference writes all R rows, putting the OLD values back
-            # into rows [num_rows, R).  Those rows belong to later intervals
-            # (or the padding past n); shards run in ascending interval
-            # order, so no shard has written them yet and dst still equals
-            # src there: writing only [:num_rows] in place is equivalent.
-            dst[start:start + num_rows] = new[:num_rows]
+            start, new = self._fold_shard(program, x, src, aux, it, shard,
+                                          staged)
+            dst[start:start + new.shape[0]] = new
         return dst, program.changed(dst[:n], src[:n])
+
+    def _fold_shard(self, program, x: torch.Tensor, src: torch.Tensor, aux,
+                    it, shard: ELLShard, staged) -> tuple[int, torch.Tensor]:
+        """SpMV + post of one staged shard, on the current stream of the
+        device its arrays lie on.  Returns ``(start, new)``: the new values
+        of the shard's destination interval ``[start, start + num_rows)``.
+
+        The reference writes all R rows of the ELL bucket, putting the OLD
+        values back into rows [num_rows, R).  Those rows belong to later
+        intervals (or the padding past n), so writing only the interval is
+        equivalent."""
+        cfg = self.config
+        cols, vals, row_map, qparams, ready = staged
+        if ready is not None:
+            compute = torch.cuda.current_stream(cols.device)
+            compute.wait_event(ready)
+            # the copies were allocated on the staging stream: tell the
+            # caching allocator the compute stream reads them, so their
+            # memory is not handed out again before the kernel is done
+            for t in (cols, vals, row_map):
+                t.record_stream(compute)
+        R = cols.shape[0]
+        start = shard.start_vertex
+        num_rows = shard.end_vertex - start
+        spmv = ell_spmv_batch if self.batched else ell_spmv
+        seg = spmv(x, cols, vals, row_map, R, program.semiring,
+                   use_kernel=cfg.use_kernel, qparams=qparams,
+                   fused=cfg.fused_gather)
+        old = src[start:start + R]
+        if self.batched:
+            rows = torch.arange(start, start + R, device=src.device)
+            post_args = (seg, old, rows, self.n, None if aux is None
+                         else aux[start:start + R])
+            if program.wants_iteration:
+                post_args += (it,)
+            new = program.post(*post_args)
+        else:
+            new = program.post(seg, old, self.n)
+        return start, new[:num_rows].to(src.dtype)
 
     # ------------------------------------------------------------------
     def iter_run(

@@ -1,6 +1,6 @@
 // Blocked-ELL semiring SpMV kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces three Pallas TPU kernels of the reference package
+// Replaces the four Pallas TPU kernels of the reference package
 // (src/repro/kernels/spmv/spmv.py):
 //   * ell_spmv_fused, k = 1 <- ell_spmv_fused_pallas / _ell_spmv_fused_kernel:
 //       out[r] = REDUCE_w COMBINE(deq(vals[r, w]), x[cols[r, w]])
@@ -10,6 +10,9 @@
 //       out[r, k] = REDUCE_w COMBINE(deq(vals[r, w]), x[cols[r, w], k])
 //   * ell_fold, k > 1       <- ell_fold_batch_pallas / _ell_fold_batch_kernel:
 //       out[r, k] = REDUCE_w COMBINE(deq(vals[r, w]), xg[r, w, k])
+//   * ell_gather_fold       <- ell_gather_fold_pallas / _ell_gather_fold_kernel:
+//       out[r] = REDUCE_w COMBINE(deq(vals[r, w]), x_blk[cols[r, w]])
+//     with cols local to one source block x_blk (a 2-D tile of spmv_2d)
 // Slots with cols < 0 contribute the semiring identity.  deq(q) is
 // (float(q) - zero) * scale for int8/float16 values and the value itself for
 // float32 values.
@@ -19,7 +22,7 @@
 // order.  Here one warp owns one ELL row and loops over W itself, so every
 // output row has exactly one writer and nothing accumulates across blocks.
 //
-// Bound: both kernels do a handful of flops per slot and are bound by bytes.
+// Bound: every kernel does a handful of flops per slot and is bound by bytes.
 // ell_spmv_fused reads R*W*(4 + sizeof(V)) bytes of cols/vals, gathers the
 // frontier x (4 bytes per distinct source, which the 50 MB L2 holds for
 // frontiers up to ~12M vertices) and writes 4*R bytes.  ell_fold reads a
@@ -32,7 +35,8 @@
 // batch) and the K source floats of a slot from one contiguous row, so
 // their bytes are cols/vals once plus K floats per valid slot; padding
 // slots read no source, and a 32-slot chunk of padding costs one coalesced
-// load of its columns.
+// load of its columns.  ell_gather_fold walks a row like ell_spmv_fused and
+// gathers from one source block, through L2.
 //
 // Rounding: dequantize and combine use __fsub_rn/__fmul_rn/__fadd_rn so
 // nvcc cannot contract (q - zero) * scale + s into an FMA.  The plain torch
@@ -118,16 +122,16 @@ template <int SEM> __device__ __forceinline__ float step(float acc, int c,
   return c >= 0 ? reduce<SEM>(acc, combine<SEM>(w, s)) : acc;
 }
 
-// GATHER = true: sources are x[cols] (ell_spmv_fused); false: sources are the
+// One warp folds ELL row `row` into out[row].  GATHER = true: sources are
+// src[cols] (ell_spmv_fused, ell_gather_fold); false: sources are the
 // pre-gathered xg[r, w] (ell_fold).
 template <int SEM, typename V, bool GATHER>
-__global__ void __launch_bounds__(kThreads)
-ell_row_kernel(const float* __restrict__ src, const int* __restrict__ cols,
-               const V* __restrict__ vals, float* __restrict__ out, int rows,
-               int width, float scale, float zero) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+__device__ __forceinline__ void fold_row(const float* __restrict__ src,
+                                         const int* __restrict__ cols,
+                                         const V* __restrict__ vals,
+                                         float* __restrict__ out, int row,
+                                         int width, float scale, float zero) {
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // warp-uniform: whole warps leave together
   const int64_t base = static_cast<int64_t>(row) * width;
   float acc = identity<SEM>();
   for (int w = lane * 4; w < width; w += 128) {
@@ -151,6 +155,16 @@ ell_row_kernel(const float* __restrict__ src, const int* __restrict__ cols,
   }
   acc = warp_reduce<SEM>(acc);
   if (lane == 0) out[row] = acc;
+}
+
+template <int SEM, typename V, bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+ell_row_kernel(const float* __restrict__ src, const int* __restrict__ cols,
+               const V* __restrict__ vals, float* __restrict__ out, int rows,
+               int width, float scale, float zero) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // warp-uniform: whole warps leave together
+  fold_row<SEM, V, GATHER>(src, cols, vals, out, row, width, scale, zero);
 }
 
 // One edge value, dequantized to float (the batched kernels load one slot
@@ -222,6 +236,36 @@ ell_row_batch_kernel(const float* __restrict__ src,
   }
 }
 
+// 2-D tiles: out[r] = REDUCE_w COMBINE(deq(vals[r, w]), x_blk[cols[r, w]])
+// with cols local to the source block x_blk.  The gather reads x_blk
+// through L2 (a tile's block is n / S floats: 8.4 MB at RMAT scale 22 with
+// S = 2, which the 50 MB L2 holds), and the row walk is ell_row_kernel's.
+template <int SEM, typename V>
+__global__ void __launch_bounds__(kThreads)
+ell_gather_fold_kernel(const float* __restrict__ x_blk,
+                       const int* __restrict__ cols,
+                       const V* __restrict__ vals, float* __restrict__ out,
+                       int rows, int width, float scale, float zero) {
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // warp-uniform: whole warps leave together
+  fold_row<SEM, V, true>(x_blk, cols, vals, out, row, width, scale, zero);
+}
+
+template <int SEM>
+int gather_fold_dtype(int dtype, const float* x_blk, const int* cols,
+                      const void* vals, float* out, int rows, int width,
+                      float scale, float zero, cudaStream_t stream) {
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  switch (dtype) {
+    case F32: ell_gather_fold_kernel<SEM, float><<<blocks, kThreads, 0, stream>>>(x_blk, cols, static_cast<const float*>(vals), out, rows, width, scale, zero); break;
+    case F16: ell_gather_fold_kernel<SEM, __half><<<blocks, kThreads, 0, stream>>>(x_blk, cols, static_cast<const __half*>(vals), out, rows, width, scale, zero); break;
+    case I8: ell_gather_fold_kernel<SEM, int8_t><<<blocks, kThreads, 0, stream>>>(x_blk, cols, static_cast<const int8_t*>(vals), out, rows, width, scale, zero); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // k == 1: the single-column kernel; k > 1: the batched one.
 template <int SEM, typename V, bool GATHER>
 int launch_typed(const float* src, const int* cols, const void* vals,
@@ -289,4 +333,21 @@ extern "C" int ell_fold(const float* xg, const int* cols, const void* vals,
                         cudaStream_t stream) {
   return launch<false>(semiring, dtype, xg, cols, vals, out, rows, width, k,
                        scale, zero, stream);
+}
+
+// x_blk is the [vb] source block the tile's local cols index (every col is
+// -1 or in [0, vb)); out is [R, 1].
+extern "C" int ell_gather_fold(const float* x_blk, const int* cols,
+                               const void* vals, float* out, int rows,
+                               int width, int semiring, int dtype,
+                               float scale, float zero, cudaStream_t stream) {
+  if (width % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (semiring) {
+    case PLUS_TIMES: return gather_fold_dtype<PLUS_TIMES>(dtype, x_blk, cols, vals, out, rows, width, scale, zero, stream);
+    case PLUS_SRC: return gather_fold_dtype<PLUS_SRC>(dtype, x_blk, cols, vals, out, rows, width, scale, zero, stream);
+    case MIN_PLUS: return gather_fold_dtype<MIN_PLUS>(dtype, x_blk, cols, vals, out, rows, width, scale, zero, stream);
+    case MIN_SRC: return gather_fold_dtype<MIN_SRC>(dtype, x_blk, cols, vals, out, rows, width, scale, zero, stream);
+    case MAX_SRC: return gather_fold_dtype<MAX_SRC>(dtype, x_blk, cols, vals, out, rows, width, scale, zero, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,6 +16,9 @@ Kernels and the Pallas TPU kernels they replace
     same with an ``[n, K]`` frontier -> [R, K].
   * ``ell_fold_batch``       — ``ell_fold_batch_pallas``: folds
     ``xg [R, W, K]`` -> [R, K].
+  * ``ell_gather_fold``      — ``ell_gather_fold_pallas``: a 2-D tile whose
+    cols index one source block ``x_blk [VB]`` -> [R, 1], gathered
+    through L2.
 
 The batched wrappers hand K = 1 to the single-column kernels (and count it
 under their names).  Each wrapper checks device, dtype, shape, contiguity
@@ -51,7 +54,7 @@ _WIDTH_MULTIPLE = 128
 
 # launch counts, one per kernel: a wrapper adds one each time it launches
 launches = {"ell_spmv_fused": 0, "ell_fold": 0, "ell_spmv_fused_batch": 0,
-            "ell_fold_batch": 0}
+            "ell_fold_batch": 0, "ell_gather_fold": 0}
 _launches_lock = threading.Lock()
 
 _lib = None
@@ -112,6 +115,14 @@ def _library() -> ctypes.CDLL:
                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_float, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            # (x_blk, cols, vals, out, rows, width, semiring, dtype, scale,
+            #  zero, stream)
+            lib.ell_gather_fold.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_void_p]
+            lib.ell_gather_fold.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -130,13 +141,10 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(kernel: str, src: torch.Tensor, cols: torch.Tensor,
-            vals: torch.Tensor, semiring: Semiring | str, qparams,
-            k: int) -> torch.Tensor:
-    """Launch ``kernel`` (the C entry point) for ``k`` columns -> [R, k];
-    counted under ``kernel`` for k = 1 and ``<kernel>_batch`` above."""
-    counter = kernel if k == 1 else f"{kernel}_batch"
-    device = src.device
+def _edges(cols: torch.Tensor, vals: torch.Tensor, device: torch.device,
+           semiring: Semiring | str, qparams) -> tuple:
+    """Check an [R, W] tile's cols/vals -> ``(rows, width, semiring id,
+    dtype id, scale, zero)``."""
     _check("cols", cols, device, (torch.int32,), 2)
     _check("vals", vals, device, tuple(_DTYPE_IDS), 2)
     if vals.shape != cols.shape:
@@ -150,20 +158,35 @@ def _launch(kernel: str, src: torch.Tensor, cols: torch.Tensor,
     if sem not in SEMIRINGS:
         raise KeyError(f"unknown semiring {sem!r}")
     scale, zero = (1.0, 0.0) if qparams is None else map(float, qparams)
+    return rows, width, SEMIRING_IDS[sem], _DTYPE_IDS[vals.dtype], scale, zero
+
+
+def _counted(counter: str, rc: int, what: str) -> None:
+    """Raise if the launch was refused, else count it."""
+    if rc != 0:
+        raise RuntimeError(f"{counter} launch failed with CUDA error {rc} "
+                           f"({what})")
+    with _launches_lock:
+        launches[counter] += 1
+
+
+def _launch(kernel: str, src: torch.Tensor, cols: torch.Tensor,
+            vals: torch.Tensor, semiring: Semiring | str, qparams,
+            k: int) -> torch.Tensor:
+    """Launch ``kernel`` (the C entry point) for ``k`` columns -> [R, k];
+    counted under ``kernel`` for k = 1 and ``<kernel>_batch`` above."""
+    device = src.device
+    rows, width, *args = _edges(cols, vals, device, semiring, qparams)
     out = torch.empty((rows, k), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, kernel)(
             src.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
-            rows, width, k, SEMIRING_IDS[sem], _DTYPE_IDS[vals.dtype], scale,
-            zero, stream)
-    if rc != 0:
-        raise RuntimeError(f"{counter} launch failed with CUDA error {rc} "
-                           f"(rows={rows}, width={width}, k={k}, "
-                           f"semiring={sem}, vals={vals.dtype})")
-    with _launches_lock:
-        launches[counter] += 1
+            rows, width, k, *args, stream)
+    _counted(kernel if k == 1 else f"{kernel}_batch", rc,
+             f"rows={rows}, width={width}, k={k}, semiring={semiring}, "
+             f"vals={vals.dtype}")
     return out
 
 
@@ -205,3 +228,31 @@ def ell_fold_batch(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
                          "differ in their first two dims")
     return _launch("ell_fold", xg, cols, vals, semiring, qparams,
                    xg.shape[2])
+
+
+def ell_gather_fold(x_blk: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, semiring: Semiring | str,
+                    qparams=None) -> torch.Tensor:
+    """[VB] source block + [R, W] blocked-ELL tile whose cols are local to
+    the block (``-1`` or in ``[0, VB)``, which the kernel does not check)
+    -> [R, 1] per-ELL-row partials."""
+    device = x_blk.device
+    # the kernel reads x_blk one float at a time, so a block sliced out of
+    # a frontier at any vertex will do: no 16-byte alignment asked
+    if (device.type != "cuda" or x_blk.dtype != torch.float32
+            or x_blk.dim() != 1 or not x_blk.is_contiguous()):
+        raise ValueError(f"x_blk must be a contiguous 1-D float32 CUDA "
+                         f"tensor, got {x_blk.dtype} {tuple(x_blk.shape)} "
+                         f"on {device}")
+    rows, width, *args = _edges(cols, vals, device, semiring, qparams)
+    out = torch.empty((rows, 1), dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.ell_gather_fold(x_blk.data_ptr(), cols.data_ptr(),
+                                 vals.data_ptr(), out.data_ptr(), rows,
+                                 width, *args, stream)
+    _counted("ell_gather_fold", rc,
+             f"rows={rows}, width={width}, vb={x_blk.shape[0]}, "
+             f"semiring={semiring}, vals={vals.dtype}")
+    return out

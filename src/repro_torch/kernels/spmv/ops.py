@@ -22,10 +22,9 @@ values (int8/float16 + ``(scale, zero)`` qparams) are dequantized inside the
 kernels and by ``ref.maybe_dequantize`` on the plain path, with the same
 rounding.
 
-``ell_gather_fold`` (the reference's 2-D-tiled ``ell_gather_fold_pallas``,
-used only by its multi-device engine) has no kernel yet (ROADMAP B4): it
-runs the plain version where the switch allows one and raises where it asks
-for the kernel.
+``ell_gather_fold`` folds one 2-D tile of ``core.distributed.spmv_2d``:
+its cols are local to a source block ``x_blk``, from which the kernel
+gathers.
 """
 from __future__ import annotations
 
@@ -76,11 +75,9 @@ def ell_fold(xg, vals, cols, semiring, use_kernel="auto", qparams=None):
 
 def ell_gather_fold(x_blk, cols, vals, semiring, use_kernel="auto",
                     qparams=None):
-    """Local-block gather + fold -> [R, 1]; plain version only (see above)."""
+    """[VB] source block + [R, W] tile with local cols -> [R, 1]."""
     if uses_kernel(use_kernel, x_blk.device):
-        raise NotImplementedError(
-            "ell_gather_fold has no CUDA kernel yet (ROADMAP B4); pass "
-            "use_kernel=False for the plain version")
+        return _cuda.ell_gather_fold(x_blk, cols, vals, semiring, qparams)
     return _ref.ell_gather_fold_ref(x_blk, cols,
                                     _ref.maybe_dequantize(vals, qparams),
                                     semiring)

@@ -25,9 +25,18 @@ iteration, and ``service()`` wraps the session in a thread-safe
             print(svc.submit("bfs", source=42).result().values[:10])
 
 Runs go to ``device="cuda"`` unless the caller asks for ``device="cpu"``;
-without a GPU, a session that asks for one raises.  The store is a
-directory written by ``preprocess_graph`` (of this package or the reference
-``repro`` package: the format is shared) or any constructed ``ShardSource``.
+without a GPU, a session that asks for one raises.  With
+``num_devices=D > 1`` (or ``GRAPHMP_DEVICES``) every engine is a
+``ShardedVSWEngine`` over D device lanes and the edge cache is split into D
+partitions under the one budget; ``device`` then names the lanes, as
+``dist.context.make_data_devices`` reads it (``"cuda"``: one GPU a lane;
+a list such as ``["cpu"] * D`` or ``["cuda:0"] * D`` may repeat a device):
+
+        GraphSession(path, num_devices=2, device=["cuda:0", "cuda:0"])
+
+The store is a directory written by ``preprocess_graph`` (of this package
+or the reference ``repro`` package: the format is shared) or any
+constructed ``ShardSource``.
 """
 from __future__ import annotations
 
@@ -36,15 +45,17 @@ import threading
 from collections import OrderedDict
 from typing import Iterable, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.core.apps import (BatchedVertexProgram, VertexProgram,
                                    get_app)
-from repro_torch.core.cache import CompressedShardCache
+from repro_torch.core.cache import CompressedShardCache, PartitionedShardCache
+from repro_torch.core.distributed import ShardedVSWEngine, assign_shards
 from repro_torch.core.engine import (BatchRunResult, EngineConfig,
                                      IterationStats, RunResult, VSWEngine,
-                                     _store_epoch, pad_to_device,
-                                     resolve_device)
+                                     _store_epoch, pad_to_device)
+from repro_torch.dist.context import make_data_devices
 from repro_torch.graph.source import ShardSource
 from repro_torch.graph.storage import GraphStore
 
@@ -116,28 +127,46 @@ class GraphSession:
         Only ``False``: the delta store is ROADMAP A5b.
     device:
         Where values live and the SpMV runs: ``"cuda"`` (default; raises
-        without a GPU) or ``"cpu"``.
+        without a GPU) or ``"cpu"``.  With ``num_devices > 1``: the device
+        lanes (a list of ``num_devices`` devices, or a spec
+        ``make_data_devices`` expands); values live on the first.
     """
 
     def __init__(self, store: ShardSource | str | os.PathLike,
                  config: EngineConfig | None = None, max_engines: int = 16,
                  *, backend: str | None = None, mutable: bool = False,
-                 device: torch.device | str = "cuda", **overrides):
+                 device: torch.device | str | list = "cuda", **overrides):
         if mutable:
             raise _not_ported("mutable=True (the delta store)", "A5b")
-        self.device = resolve_device(device)
         store = _resolve_source(store, backend)
         if config is None:
             config = EngineConfig.from_env(**overrides)
         elif overrides:
             config = config.replace(**overrides)
+        self._device_spec = device
+        self.devices = make_data_devices(config.num_devices, device)
+        self.device = self.devices[0]
         self.store = store
         self.config = config
-        self.cache = CompressedShardCache(
-            store, mode=config.cache_mode,
-            budget_bytes=config.cache_budget_bytes,
-            hot_fraction=config.cache_hot_fraction,
-            promote_after=config.cache_promote_after)
+        if config.num_devices > 1:
+            # multi-device sessions partition the ONE edge cache by shard
+            # owner: each lane's shards hash into its own
+            # CompressedShardCache slice, all under the same global budget
+            owner, _ = assign_shards(
+                np.asarray(store.intervals),
+                [int(m.get("nnz", 0)) for m in store.properties["shards"]],
+                config.num_devices)
+            self.cache = PartitionedShardCache(
+                store, owner, config.num_devices, mode=config.cache_mode,
+                budget_bytes=config.cache_budget_bytes,
+                hot_fraction=config.cache_hot_fraction,
+                promote_after=config.cache_promote_after)
+        else:
+            self.cache = CompressedShardCache(
+                store, mode=config.cache_mode,
+                budget_bytes=config.cache_budget_bytes,
+                hot_fraction=config.cache_hot_fraction,
+                promote_after=config.cache_promote_after)
         self._graph_epoch = _store_epoch(store)
         # shared vertex metadata: read from disk exactly once per session
         self.in_deg, self.out_deg = store.read_vertex_info()
@@ -162,6 +191,16 @@ class GraphSession:
         self.iteration_observers: list = []
 
     # -- engine construction / reuse ------------------------------------
+    def _lanes(self, num_devices: int):
+        """What an engine of ``num_devices`` runs on: the session's device
+        (1) or its device lanes (> 1; a per-run config that asks for
+        another lane count expands the session's ``device`` anew)."""
+        if num_devices == 1:
+            return self.device
+        if num_devices == len(self.devices):
+            return self.devices
+        return make_data_devices(num_devices, self._device_spec)
+
     def _resolve(self, app, app_kwargs) -> tuple[VertexProgram, object]:
         if isinstance(app, (VertexProgram, BatchedVertexProgram)):
             if app_kwargs:
@@ -205,7 +244,12 @@ class GraphSession:
         with self._engines_lock:
             eng = self._engines.get(key)
             if eng is None:
-                eng = VSWEngine.from_session(self, program, config)
+                # num_devices > 1: the same run/run_batch/iter_run surface,
+                # D lanes per edge sweep
+                cls = (ShardedVSWEngine
+                       if (config or self.config).num_devices > 1
+                       else VSWEngine)
+                eng = cls.from_session(self, program, config)
                 if prog_key[0] == "prog":
                     # a raw-id key must keep the program alive to stay unique
                     eng._keyed_program = program
@@ -374,13 +418,16 @@ class GraphSession:
     # -- observability / lifecycle --------------------------------------
     @property
     def stats(self):
-        """Shared CompressedShardCache stats (hits, disk_bytes, ...)."""
+        """Shared edge-cache stats (hits, disk_bytes, ...); summed over the
+        partitions of a multi-device session."""
         return self.cache.stats
 
     def cache_report(self) -> dict:
         """Snapshot of the shared edge cache (policy, mode, budget, tier
         occupancy, hit/miss/promotion/demotion/eviction counters,
-        ``decode_seconds_saved``, achieved compression ratio)."""
+        ``decode_seconds_saved``, achieved compression ratio); policy
+        ``"partitioned"`` with one report per partition when
+        ``num_devices > 1``."""
         return self.cache.report()
 
     def warm(self) -> int:

@@ -145,13 +145,58 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda.ell_spmv_fused(x, cols.long(), vals, "min_plus")
     with pytest.raises(ValueError, match="contiguous"):
         cuda.ell_spmv_fused(x, cols.t(), vals.t(), "min_plus")
-    with pytest.raises(NotImplementedError, match="B4"):
-        ops.ell_gather_fold(x, cols, vals, "min_plus")
+    with pytest.raises(ValueError, match="1-D"):
+        ops.ell_gather_fold(x[None], cols, vals, "min_plus")
     with pytest.raises(ValueError, match="2-D"):
         cuda.ell_spmv_fused_batch(x, cols, vals, "min_plus")
     with pytest.raises(ValueError, match="first two dims"):
         cuda.ell_fold_batch(torch.ones(4, 128, 2, device=dev), vals, cols,
                             "min_plus")
+
+
+@pytest.mark.parametrize("vb", [4096, 50_000])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "int8"])
+@pytest.mark.parametrize("semiring", SEMIS)
+def test_gather_fold_kernel_matches_plain(dev, semiring, dtype, vb):
+    """B4 on a tile whose cols are local to a source block of 16 KB or
+    200 KB.  The block starts 3 floats into a larger array: B4 needs only
+    float alignment."""
+    ell = _shard(vb + len(semiring), dtype, n_src=vb)
+    rng = np.random.default_rng(vb)
+    x = torch.from_numpy((rng.random(vb + 7) * 100).astype(np.float32)).to(dev)
+    if not SEMIRINGS[semiring].is_plus:
+        x[torch.from_numpy(rng.random(vb + 7) < 0.2).to(dev)] = float("inf")
+    x_blk = x[3:3 + vb]
+    cols = torch.from_numpy(ell.cols).to(dev)
+    vals = torch.from_numpy(ell.vals).to(dev)
+    qp = (ell.val_scale, ell.val_zero)
+    before = cuda.launches["ell_gather_fold"]
+    got = ops.ell_gather_fold(x_blk, cols, vals, semiring, qparams=qp)
+    want = ops.ell_gather_fold(x_blk, cols, vals, semiring, use_kernel=False,
+                               qparams=qp)
+    torch.cuda.synchronize()
+    _assert_close(got, want, semiring)
+    assert cuda.launches["ell_gather_fold"] == before + 1
+
+
+def test_spmv_2d_on_card(dev):
+    """spmv_2d on a 2 x 2 grid of lanes on one card: one B4 launch a tile,
+    equal to the plain version (min_plus bitwise)."""
+    from repro_torch.core.distributed import spmv_2d
+    rng = np.random.default_rng(0)
+    D, S, R, W, nloc = 2, 2, 4000, 256, 30_000
+    cols = rng.integers(-1, nloc, size=(D, S, R, W)).astype(np.int32)
+    vals = rng.random((D, S, R, W)).astype(np.float32)
+    row_map = np.sort(rng.integers(0, R, size=(D, S, R)), -1).astype(np.int32)
+    x = rng.random(S * nloc).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (x, cols, vals, row_map)]
+    grid = [[torch.device("cuda", 0)] * S] * D
+    for semiring in ("plus_times", "min_plus"):
+        before = cuda.launches["ell_gather_fold"]
+        got = spmv_2d(*args, semiring, devices=grid)
+        assert cuda.launches["ell_gather_fold"] == before + D * S
+        want = spmv_2d(*args, semiring, devices=grid, use_kernel=False)
+        _assert_close(got, want, semiring)
 
 
 @pytest.fixture(scope="module")
@@ -259,3 +304,59 @@ def test_service_hammer_on_card(dev, store_path):
             else:
                 want = s.run(app, **kw).values
                 np.testing.assert_array_equal(answers[i], want)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_two_lane_session_on_card(dev, store_path, depth):
+    """Two lanes on one card (each its own stream), through the fused
+    kernels (B1) and through gather + fold (B2, B3): values and iteration
+    counts equal the single-lane CPU run (PageRank to PPR_RTOL: the card's
+    index_add_ adds in any order), per-lane disk bytes sum to the total,
+    each kernel runs once per shard the lanes processed, and the batch's
+    columns equal solo runs."""
+    lanes = [torch.device("cuda", 0)] * 2
+    runs = [("sssp", {}), ("bfs", dict(source=7)), ("cc", {}),
+            ("pagerank", dict(max_iters=15))]
+    sources = [0, 7, 300]
+    with GraphSession(store_path, device="cpu") as s:
+        want = {app: s.run(app, **kw) for app, kw in runs}
+        want_cols = [s.run("sssp", source=v) for v in sources]
+    with GraphSession(store_path, num_devices=2, device=lanes,
+                      prefetch_depth=depth) as s:
+        for fused in (True, False):
+            cfg = s.config.replace(fused_gather=fused)
+            name = "ell_spmv_fused" if fused else "ell_fold"
+            for app, kw in runs:
+                cuda.reset_launches()
+                r = s.run(app, config=cfg, **kw)
+                assert cuda.launches[name] == sum(
+                    h.shards_processed for h in r.history) > 0
+                assert all(sum(h.device_disk_bytes) == h.disk_bytes
+                           and len(h.device_disk_bytes) == 2
+                           for h in r.history)
+                assert r.iterations == want[app].iterations
+                if app == "pagerank":
+                    np.testing.assert_allclose(r.values, want[app].values,
+                                               rtol=PPR_RTOL)
+                else:
+                    np.testing.assert_array_equal(r.values, want[app].values)
+            cuda.reset_launches()
+            got = s.run_batch("sssp", sources=sources, config=cfg)
+            assert cuda.launches[f"{name}_batch"] == sum(
+                h.shards_processed for h in s.last_batch_result.history) > 0
+            for g, w in zip(got, want_cols, strict=True):
+                assert g.iterations == w.iterations
+                np.testing.assert_array_equal(g.values, w.values)
+
+
+def test_distributed_vsw_on_card(dev):
+    from repro_torch.core.apps import get_app
+    from repro_torch.core.distributed import DistributedVSW, partition_for_mesh
+    src, dst = materialize(rmat_edges(scale=12, edge_factor=8, seed=5))
+    g = partition_for_mesh(src, dst, 1 << 12, 2)
+    for app in ("cc", "sssp"):
+        on_cpu = DistributedVSW(g, get_app(app), ["cpu"] * 2).run(50)
+        on_card = DistributedVSW(g, get_app(app),
+                                 [torch.device("cuda", 0)] * 2).run(50)
+        assert on_card[1] == on_cpu[1]
+        np.testing.assert_array_equal(on_card[0], on_cpu[0])

@@ -19,6 +19,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch, repro_torch.session, repro_torch.state\n"
         "import repro_torch.kernels.spmv.ops, repro_torch.kernels.spmv.cuda\n"
         "import repro_torch.serve.graph_service, repro_torch.obs.metrics\n"
+        "import repro_torch.core.distributed, repro_torch.dist.context\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -47,8 +48,8 @@ def test_use_kernel_true_on_cpu_raises(graph_store):
 def test_config_validation_and_env(monkeypatch):
     with pytest.raises(ValueError, match="use_kernel"):
         EngineConfig(use_kernel="maybe")
-    with pytest.raises(NotImplementedError, match="A9"):
-        EngineConfig(num_devices=2)
+    # the multi-device engine is ported: two lanes validate and build
+    assert EngineConfig(num_devices=2).num_devices == 2
     monkeypatch.setenv("GRAPHMP_USE_KERNEL", "0")
     monkeypatch.setenv("GRAPHMP_PREFETCH", "3")
     cfg = EngineConfig.from_env()
