@@ -15,14 +15,16 @@ Run from the root of the repository, on a machine with a CUDA GPU and
 3. kernels — on every shard of the store, the four ELL kernels against
    their plain torch versions for all 5 semirings x {float32, float16, int8}
    edge values: the single-column ones (K = 1) and the batched ones at
-   K = ``BATCH_K`` (16), plus K = 3 and 64 on the first shards; the same
-   edges cut into a 2-D tiling (D = S = 2 destination blocks x source
-   ranges, local cols, width 128) and ``ell_gather_fold`` (B4) held on every
-   tile; then each kernel timed over
-   one sweep of the store (every shard once; B4: every tile once) — its
-   device time from torch.profiler, CUDA-event time beside it — next to its
-   byte bound, its plain version and one PyTorch library call computing the
-   same function;
+   K = ``BATCH_K`` (16), plus K = 3, 4, 32 and 64 and a K = 16 frontier
+   view off 16-byte alignment on the first shards; the same edges cut into
+   a 2-D tiling (D = S = 2 destination blocks x source ranges, local cols,
+   width 128, with each row's extent built on the card) and
+   ``ell_gather_fold`` (B4) held on every tile with and without the
+   extents; then each kernel timed over one sweep of the store (every
+   shard once; B4: every tile once, with and without extents) — its device
+   time from torch.profiler, CUDA-event time beside it — next to its byte
+   bound, its plain version and one PyTorch library call computing the
+   same function, and the batched kernels at K = 4, 16 and 32;
 4. main path — ``GraphSession(store)`` (device "cuda") runs pagerank, sssp,
    bfs and cc through the fused kernel, through the gather + fold kernel,
    and with ``use_kernel=False``; bfs again at prefetch depth 2.  Exact apps
@@ -45,8 +47,9 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    through the gather + fold kernels (B2, B3); ``DistributedVSW`` on
    ``partition_for_mesh`` of the same edges at D = 2 runs cc, sssp, bfs
    (bitwise against phase 4) and pagerank (to ``PR_RTOL``); ``spmv_2d`` on
-   the phase-3 tiling at D = S = 2 for plus_times and min_plus, against its
-   plain version and the 1-D ``ops.ell_spmv`` of the same graph.  Each
+   the phase-3 tiling at D = S = 2 for plus_times and min_plus, with the
+   tiles' extents and without, against its plain version and the 1-D
+   ``ops.ell_spmv`` of the same graph.  Each
    run's seconds are printed beside the single-lane ones, and each kernel's
    launches must equal the shards, lane-iterations or tiles it processed.
 
@@ -81,8 +84,12 @@ PR_RTOL = 5e-4
 PPR_RTOL = PR_RTOL
 CACHE_BUDGET = 16 << 30        # holds the decoded scale-22 store in host RAM
 BATCH_K = 16                   # GraphService's default max_batch
-EXTRA_KS = (3, 64)             # also checked, on the first EXTRA_SHARDS
+EXTRA_KS = (3, 4, 32, 64)      # also checked, on the first EXTRA_SHARDS
 EXTRA_SHARDS = 3
+TIMED_KS = (4, BATCH_K, 32)    # the batched kernels' float4 loads, by K
+# PERF.md's times of the batched kernels before their redesign, one sweep at
+# K = 16, plus_src float32 (chip_smoke.py on an H100 80GB HBM3 at 700 W)
+EARLIER_MS = {"ell_spmv_fused_batch": 5.004, "ell_fold_batch": 6.038}
 KERNEL_SOURCE = "src/repro_torch/kernels/spmv/csrc/ell_spmv.cu"
 # the Pallas entry each kernel replaces (B1 serves K = 1 and K > 1)
 REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
@@ -200,10 +207,13 @@ def tile_ells(src, dst, n: int) -> dict:
 
 def build_tiles(torch, layouts, n: int, dev) -> dict:
     """``tile_ells``' tiles stacked on the card as ``cols``/``unit``
-    [D, S, R, W] (unit edge values) and ``row_map`` [D, S, R], with one
-    dict per tile for the kernel phase (its slices of an [n] frontier are
-    shorter than ``vb`` where the block reaches past n; spmv_2d takes a
-    frontier padded to ``n_pad``)."""
+    [D, S, R, W] (unit edge values), ``row_map`` and the rows' extents
+    (``ell_row_extents``, built here once, as the tiles are laid out)
+    [D, S, R], with one dict per tile for the kernel phase (its slices of
+    an [n] frontier are shorter than ``vb`` where the block reaches past n;
+    spmv_2d takes a frontier padded to ``n_pad``)."""
+    from repro_torch.kernels.spmv.ops import ell_row_extents
+
     ells, host_s = layouts["tiles"].result()
     t0 = time.perf_counter()
     per = vb = -(-n // LANES)
@@ -216,24 +226,35 @@ def build_tiles(torch, layouts, n: int, dev) -> dict:
     cols = torch.full(shape, -1, dtype=torch.int32, device=dev)
     unit = torch.zeros(shape, dtype=torch.float32, device=dev)
     row_map = torch.zeros(shape[:3], dtype=torch.int32, device=dev)
-    tiles = []
-    for (d, s), (c, v, rm) in sorted(parts.items()):
+    for (d, s), (c, v, rm) in parts.items():
         r = c.shape[0]
         cols[d, s, :r], unit[d, s, :r], row_map[d, s, :r] = c, v, rm
-        valid = c >= 0
-        tiles.append(dict(
-            d=d, s=s, cols=cols[d, s], unit=unit[d, s], rows=R,
-            slots=R * TILE_WIDTH, valid=int(valid.sum()),
-            distinct=int(torch.unique(c[valid]).numel()), vb=vb))
     del parts
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    extents = ell_row_extents(cols)
+    torch.cuda.synchronize()
+    ext_s = time.perf_counter() - t1
+    tiles = []
+    for d in range(LANES):
+        for s in range(LANES):
+            c = cols[d, s]
+            valid = c >= 0
+            tiles.append(dict(
+                d=d, s=s, cols=c, unit=unit[d, s], extents=extents[d, s],
+                rows=R, slots=R * TILE_WIDTH, valid=int(valid.sum()),
+                ext_sum=int(extents[d, s].sum()),
+                distinct=int(torch.unique(c[valid]).numel()), vb=vb))
     log(f"tiles: {LANES} x {LANES} tiles [R={R}, W={TILE_WIDTH}] of "
         f"{per} destination rows x {vb} sources, built on the host in "
         f"{host_s:.1f}s (beside preprocessing), on the card in "
-        f"{time.perf_counter() - t0:.1f}s; valid slots "
-        f"{[t['valid'] for t in tiles]}, distinct sources "
-        f"{[t['distinct'] for t in tiles]}")
-    return dict(cols=cols, unit=unit, row_map=row_map, tiles=tiles,
-                n_pad=per * LANES)
+        f"{time.perf_counter() - t0:.1f}s (row extents {ext_s:.3f}s); "
+        f"valid slots {[t['valid'] for t in tiles]}, slots below the "
+        f"extents {[t['ext_sum'] for t in tiles]}, mean extent "
+        f"{sum(t['ext_sum'] for t in tiles) / (R * len(tiles)):.3f}, "
+        f"distinct sources {[t['distinct'] for t in tiles]}")
+    return dict(cols=cols, unit=unit, row_map=row_map, extents=extents,
+                tiles=tiles, n_pad=per * LANES)
 
 
 def _quantized(torch, w, dtype: str):
@@ -253,8 +274,8 @@ def _quantized(torch, w, dtype: str):
 
 def check_gather_fold(torch, tiling, x, x_inf, gen, hold) -> None:
     """B4 against its plain version on every tile, 5 semirings x 3 dtypes
-    of random weights.  Keeps each tile's float16 and int8 values for the
-    timings."""
+    of random weights, without and with the tile's row extents.  Keeps
+    each tile's float16 and int8 values for the timings."""
     from repro_torch.kernels.spmv import cuda, ref
 
     for t in tiling["tiles"]:
@@ -269,10 +290,15 @@ def check_gather_fold(torch, tiling, x, x_inf, gen, hold) -> None:
             for sem in SEMIS:
                 plus = sem.startswith("plus")
                 full = (x if plus else x_inf)[t["s"] * vb:(t["s"] + 1) * vb]
+                want = ref.ell_gather_fold_ref(full, cols, deq, sem)
+                what = f"tile ({t['d']}, {t['s']}) ({sem}, {dtype})"
                 hold("ell_gather_fold",
-                     cuda.ell_gather_fold(full, cols, vals, sem, qp),
-                     ref.ell_gather_fold_ref(full, cols, deq, sem), plus,
-                     f"tile ({t['d']}, {t['s']}) ({sem}, {dtype})")
+                     cuda.ell_gather_fold(full, cols, vals, sem, qp), want,
+                     plus, what)
+                hold("ell_gather_fold",
+                     cuda.ell_gather_fold(full, cols, vals, sem, qp,
+                                          extents=t["extents"]),
+                     want, plus, f"{what} with extents")
         t["float32"] = (t["unit"], (1.0, 0.0))
         del w
 
@@ -357,6 +383,11 @@ def phase_kernels(torch, store, dev, tiling):
                     hold("ell_fold_batch",
                          cuda.ell_fold_batch(g, vals, cols, sem, qp), want,
                          plus, what)
+                    if k == BATCH_K and p < EXTRA_SHARDS:  # scalar loads
+                        hold("ell_spmv_fused_batch",
+                             cuda.ell_spmv_fused_batch(_unaligned(torch, xs),
+                                                       cols, vals, sem, qp),
+                             want, plus, f"{what}, unaligned frontier")
             del xgk
         unit = torch.from_numpy(ell.vals).to(dev)  # the store's own vals
         resident.append(dict(
@@ -370,11 +401,23 @@ def phase_kernels(torch, store, dev, tiling):
     log(f"kernels: {checks} checks against the plain versions on "
         f"{store.num_shards} shards x {len(SEMIS)} semirings x "
         f"{len(DTYPES)} dtypes (K = 1 and {BATCH_K} on every shard, K = "
-        f"{EXTRA_KS} on {EXTRA_SHARDS}; B4 on {len(tiling['tiles'])} tiles) "
-        f"passed in {time.perf_counter() - t0:.1f}s; max abs err {err}")
+        f"{EXTRA_KS} and an unaligned K = {BATCH_K} frontier on "
+        f"{EXTRA_SHARDS}; B4 on {len(tiling['tiles'])} tiles, with and "
+        f"without extents) passed in {time.perf_counter() - t0:.1f}s; max "
+        f"abs err {err}")
     x16 = batch_x[BATCH_K][0]
     del batch_x
     return time_kernels(torch, resident, tiling["tiles"], x, x16, n, err)
+
+
+def _unaligned(torch, t):
+    """A contiguous copy of ``t`` starting 4 bytes past a 16-byte boundary
+    (the batched kernels then read one float a lane)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    skip = 1 + (-buf.data_ptr() // 4) % 4
+    view = buf[skip:skip + t.numel()].view(t.shape)
+    check(view.data_ptr() % 16 == 4, "unaligned view is aligned")
+    return view.copy_(t)
 
 
 def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
@@ -442,7 +485,8 @@ def _csr(torch, s, n):
             size=(s["rows"], n), check_invariants=False)
 
 
-def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
+def bound_bytes(name: str, s: dict, val_bytes: int, k: int,
+                extents: bool = False) -> int:
     """Least bytes one call on shard ``s`` moves: each input read once, the
     output written once.  cols (4 B a slot), the edge values (``val_bytes``
     a slot; the *_src semirings never read them), the sources — the
@@ -450,7 +494,11 @@ def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
     tile's distinct local sources), every slot of the gathered ``xg``
     (ell_fold, which reads it whole), or ``xg`` at the valid slots only
     (ell_fold_batch reads no source for a padding slot) — and the [R, k]
-    float32 partials."""
+    float32 partials.  B4 with ``extents``: 4 B of extent a row, and cols
+    (and values) at the slots below the rows' extents only."""
+    if extents:
+        return (4 * s["rows"] + s["ext_sum"] * (4 + val_bytes)
+                + 4 * s["distinct"] + 4 * s["rows"])
     edges = s["slots"] * (4 + val_bytes)
     if name.startswith("ell_spmv_fused") or name == "ell_gather_fold":
         src = 4 * k * s["distinct"]
@@ -459,6 +507,37 @@ def bound_bytes(name: str, s: dict, val_bytes: int, k: int) -> int:
     else:
         src = 4 * k * s["valid"]
     return edges + src + 4 * k * s["rows"]
+
+
+def _bound_ms(name, items, val_bytes, k, extents=False) -> tuple:
+    """(bytes, ms at the HBM rate) of one pass over ``items``."""
+    nbytes = sum(bound_bytes(name, s, val_bytes, k, extents) for s in items)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _gathered_chunks(torch, resident, xk, k: int, timed) -> dict:
+    """``timed(chunk, xgs)`` over chunks of shards whose gathered [R, W, k]
+    sources (``xgs``, gathered outside the timed region) fit on the card,
+    summed key by key: the gathered sources of all shards would not (0.69e9
+    slots x 4k B at scale 22)."""
+    from repro_torch.kernels.spmv import ref
+
+    totals: dict = {}
+    chunk: list = []
+
+    def flush():
+        xgs = [ref.gather(xk, s["cols"]) for s in chunk]
+        for key, ms in timed(chunk, xgs).items():
+            totals[key] = totals.get(key, 0.0) + ms
+        chunk.clear()
+
+    for s in resident:
+        chunk.append(s)
+        if sum(c["slots"] for c in chunk) * 4 * k > 12e9:
+            flush()
+    if chunk:
+        flush()
+    return totals
 
 
 def time_kernels(torch, resident, tiles, x, x16, n, err):
@@ -473,6 +552,11 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
     for t in tiles:
         t["x"] = xp[t["s"] * t["vb"]:(t["s"] + 1) * t["vb"]]
     tile_csrs = [_csr(torch, t, t["vb"]) for t in tiles]
+
+    def b4(t, sem, vals, qp=None, extents=True):
+        return cuda.ell_gather_fold(t["x"], t["cols"], vals, sem, qp,
+                                    extents=t["extents"] if extents else None)
+
     sweeps = {
         "ell_spmv_fused": (
             [lambda s=s: cuda.ell_spmv_fused(x, s["cols"], s["unit"], sem)
@@ -497,9 +581,9 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
                                                 s["unit"], s["cols"], sem)
              for s in resident],
             [lambda c=c: torch.sparse.mm(c, x16) for c in csrs]),
+        # the main path's B4 reads each row up to its extent
         "ell_gather_fold": (
-            [lambda t=t: cuda.ell_gather_fold(t["x"], t["cols"], t["unit"],
-                                              sem) for t in tiles],
+            [lambda t=t: b4(t, sem, t["unit"]) for t in tiles],
             [lambda t=t: ref.ell_gather_fold_ref(t["x"], t["cols"],
                                                  t["unit"], sem)
              for t in tiles],
@@ -524,23 +608,13 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
           "einsum differs from ell_fold_batch")
     t0 = tiles[0]
     check(torch.allclose(torch.sparse.mm(tile_csrs[0], t0["x"][:, None]),
-                         cuda.ell_gather_fold(t0["x"], t0["cols"], t0["unit"],
-                                              sem),
-                         rtol=PLUS_RTOL, atol=0),
-          "sparse.mm differs from ell_gather_fold")
+                         b4(t0, sem, t0["unit"]), rtol=PLUS_RTOL, atol=0),
+          "sparse.mm differs from ell_gather_fold with extents")
     del xg16
     times = {name: _paired(torch, *calls) for name, calls in sweeps.items()}
     del sweeps
-    # ell_fold_batch: the gathered [R, W, 16] of all shards would not fit on
-    # the card (0.69e9 slots x 64 B at scale 22), so gather a chunk of
-    # shards outside the timed region, time the chunk, and sum the chunks
-    totals = dict.fromkeys(("k1", "k1e", "k2", "k2e", "p1", "p1e", "p2",
-                            "p2e", "lib", "libe"), 0.0)
-    chunk: list = []
-
-    def flush():
-        xgs = [ref.gather(x16, s["cols"]) for s in chunk]
-        part = _paired(
+    times["ell_fold_batch"] = _gathered_chunks(
+        torch, resident, x16, BATCH_K, lambda chunk, xgs: _paired(
             torch,
             [lambda s=s, g=g: cuda.ell_fold_batch(g, s["unit"], s["cols"],
                                                   sem)
@@ -550,32 +624,22 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
              for s, g in zip(chunk, xgs)],
             # plus_times over the unit vals (0 at sentinels) = plus_src
             [lambda s=s, g=g: torch.einsum("rw,rwk->rk", s["unit"], g)
-             for s, g in zip(chunk, xgs)])
-        for key in totals:
-            totals[key] += part[key]
-        chunk.clear()
-
-    for s in resident:
-        chunk.append(s)
-        if sum(c["slots"] for c in chunk) * 4 * BATCH_K > 12e9:
-            flush()
-    if chunk:
-        flush()
-    times["ell_fold_batch"] = totals
+             for s, g in zip(chunk, xgs)]))
 
     records = {}
     for name, t in times.items():
         k = BATCH_K if name.endswith("_batch") else 1
         items = tiles if name == "ell_gather_fold" else resident
-        nbytes = sum(bound_bytes(name, s, 0, k) for s in items)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        b4_ext = name == "ell_gather_fold"
+        nbytes, bound = _bound_ms(name, items, 0, k, extents=b4_ext)
         ms = min(t["k1"], t["k2"])
         records[name] = dict(
             name=name, route="cuda", source=KERNEL_SOURCE,
             replaces=REPLACES[name], launches=None,
             max_abs_err=err[name], ms=ms, plain_ms=min(t["p1"], t["p2"]),
             bound_ms=bound, bound_by="bytes", library_ms=t["lib"])
-        log(f"timing: {name} K={k} {sem} float32, one sweep = "
+        log(f"timing: {name} K={k} {sem} float32"
+            f"{', with extents' if b4_ext else ''}, one sweep = "
             f"{len(items)} launches, device ms (events ms): kernel "
             f"{t['k1']:.4f} ({t['k1e']:.4f}) / {t['k2']:.4f} "
             f"({t['k2e']:.4f}), plain {t['p1']:.4f} ({t['p1e']:.4f}) / "
@@ -583,17 +647,44 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
             f"({t['libe']:.4f}); bound {bound:.4f} ms ({nbytes} bytes at "
             f"3.35 TB/s); {nbytes / ms / 1e9:.2f} TB/s, {bound / ms:.0%} of "
             "the bound")
+    # B4 without extents walks every slot, as the kernel before extents
+    # did: with, without, without, with, in turns
+    walks = {e: [lambda t=t, e=e: b4(t, sem, t["unit"], extents=e)
+                 for t in tiles] for e in (True, False)}
+    (e1, _), (f1, _), (f2, _), (e2, _) = [
+        _time_sweep(torch, walks[e]) for e in (True, False, False, True)]
+    b4_ms = {True: min(e1, e2), False: min(f1, f2)}
+    full_bytes, full_bound = _bound_ms("ell_gather_fold", tiles, 0, 1)
+    ext_bytes, ext_bound = _bound_ms("ell_gather_fold", tiles, 0, 1, True)
+    log(f"timing: ell_gather_fold {sem} float32, one pass over "
+        f"{len(tiles)} tiles, device ms: with extents {e1:.4f} / {e2:.4f}, "
+        f"without {f1:.4f} / {f2:.4f}; full-ELL bound {full_bound:.4f} ms "
+        f"({full_bytes} bytes: every slot's col), extent bound "
+        f"{ext_bound:.4f} ms ({ext_bytes} bytes: extents, cols below them); "
+        f"without extents {full_bound / b4_ms[False]:.0%} of the full-ELL "
+        f"bound, with extents {ext_bound / b4_ms[True]:.0%} of the extent "
+        f"bound; library (sparse.mm) "
+        f"{records['ell_gather_fold']['library_ms']:.4f}")
+    scaling = time_batched_scaling(torch, resident, n, sem, {
+        name: min((times[name]["k1"], times[name]["k1e"]),
+                  (times[name]["k2"], times[name]["k2e"]))
+        for name in EARLIER_MS})
+    log(f"timing: before -> after, one sweep, {sem} float32: "
+        f"ell_gather_fold {b4_ms[False]:.4f} (without extents: the full "
+        f"row walk) -> {b4_ms[True]:.4f} (with extents), this run; "
+        + "; ".join(f"{name} K={BATCH_K} {EARLIER_MS[name]:.3f} (PERF.md, "
+                    f"before the redesign) -> {scaling[name, BATCH_K][0]:.4f}"
+                    for name in EARLIER_MS))
     # SSSP/BFS's semiring reads the edge values: the store's float32 unit
     # values, and the float16/int8 ones a weighted store would hold
     sem = "min_plus"
     for dtype, val_bytes in (("float32", 4), ("float16", 2), ("int8", 1)):
         for name in ("ell_spmv_fused", "ell_fold", "ell_spmv_fused_batch",
-                     "ell_gather_fold"):
-            items = tiles if name == "ell_gather_fold" else resident
-            if name == "ell_gather_fold":
-                calls = [lambda t=t: cuda.ell_gather_fold(
-                    t["x"], t["cols"], t[dtype][0], sem, t[dtype][1])
-                    for t in tiles]
+                     "ell_gather_fold", "ell_gather_fold (no extents)"):
+            items = tiles if name.startswith("ell_gather_fold") else resident
+            if name.startswith("ell_gather_fold"):
+                calls = [lambda t=t, e=name == "ell_gather_fold": b4(
+                    t, "min_plus", *t[dtype], extents=e) for t in tiles]
             elif name == "ell_spmv_fused":
                 calls = [lambda s=s: cuda.ell_spmv_fused(
                     x, s["cols"], s[dtype][0], sem, s[dtype][1])
@@ -608,9 +699,8 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
                     for s in resident]
             ms, ev = _time_sweep(torch, calls)
             k = BATCH_K if name.endswith("_batch") else 1
-            nbytes = sum(bound_bytes(name, s, val_bytes, k)
-                         for s in items)
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            nbytes, bound = _bound_ms(name.split()[0], items, val_bytes, k,
+                                      extents=name == "ell_gather_fold")
             log(f"timing: {name} K={k} {sem} {dtype} vals, one sweep: "
                 f"kernel {ms:.4f} ms device ({ev:.4f} events), bound "
                 f"{bound:.4f} ms, {nbytes / ms / 1e9:.2f} TB/s, "
@@ -619,6 +709,44 @@ def time_kernels(torch, resident, tiles, x, x16, n, err):
         for key in ("x", "float16", "int8", "float32"):
             t.pop(key, None)
     return records
+
+
+def time_batched_scaling(torch, resident, n, sem, paired) -> dict:
+    """The batched kernels (B1, and B3 over sources gathered outside the
+    timed region) at each K of TIMED_KS, one sweep each: float4 source
+    loads at every K here.  -> {(name, K): (device ms, events ms)}; K =
+    BATCH_K is the paired timing's, ``paired[name]``."""
+    from repro_torch.kernels.spmv import cuda
+
+    gen = torch.Generator(device=resident[0]["cols"].device).manual_seed(3)
+    out = {}
+    for k in TIMED_KS:
+        if k == BATCH_K:
+            for name in paired:
+                out[name, k] = paired[name]
+            continue
+        xk = torch.rand(n, k, generator=gen, device=gen.device)
+        out["ell_spmv_fused_batch", k] = _time_sweep(
+            torch, [lambda s=s: cuda.ell_spmv_fused_batch(
+                xk, s["cols"], s["unit"], sem) for s in resident])
+        fold = _gathered_chunks(
+            torch, resident, xk, k, lambda chunk, xgs: dict(zip(
+                ("ms", "ev"), _time_sweep(torch, [
+                    lambda s=s, g=g: cuda.ell_fold_batch(
+                        g, s["unit"], s["cols"], sem)
+                    for s, g in zip(chunk, xgs)]))))
+        out["ell_fold_batch", k] = fold["ms"], fold["ev"]
+        del xk
+    for name in ("ell_spmv_fused_batch", "ell_fold_batch"):
+        parts = []
+        for k in TIMED_KS:
+            ms, ev = out[name, k]
+            _, bound = _bound_ms(name, resident, 0, k)
+            parts.append(f"K={k} {ms:.4f} ({ev:.4f}) ms (bound "
+                         f"{bound:.4f}, {bound / ms:.0%})")
+        log(f"timing: {name} {sem} float32 by K, one sweep, device ms "
+            f"(events ms): " + ", ".join(parts))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1106,20 +1234,27 @@ def multi_resident(torch, dev, mesh, n, tiling, solo) -> int:
         plus = sem.startswith("plus")
         args = (x, tiling["cols"], tiling["unit"], tiling["row_map"], sem)
         cuda.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = spmv_2d(*args, devices=grid)
-        torch.cuda.synchronize()
-        t_2d = time.perf_counter() - t0
+        outs, secs = {}, {}
+        # the main path reads each row up to its extent; the full row walk
+        # must give the same
+        for walk, ext in (("extents", tiling["extents"]), ("full", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[walk] = spmv_2d(*args, devices=grid, extents=ext)
+            torch.cuda.synchronize()
+            secs[walk] = time.perf_counter() - t0
         launches = dict(cuda.launches)
         b4 += launches["ell_gather_fold"]
-        check(launches["ell_gather_fold"] == LANES * LANES,
+        check(launches["ell_gather_fold"] == 2 * LANES * LANES,
               f"spmv_2d {sem}: launches {launches}, expected "
-              f"{LANES * LANES} of ell_gather_fold (one a tile)")
+              f"{2 * LANES * LANES} of ell_gather_fold (one a tile a call)")
         plain = spmv_2d(*args, devices=grid, use_kernel=False)
-        ok, e_plain = _compare(torch, got, plain, plus)
-        check(ok, f"spmv_2d {sem} differs from its plain version by "
-                  f"{e_plain}")
+        e_plain = {}
+        for walk, got in outs.items():
+            ok, e_plain[walk] = _compare(torch, got, plain, plus)
+            check(ok, f"spmv_2d {sem} ({walk} rows) differs from its plain "
+                      f"version by {e_plain[walk]}")
+        got = outs["extents"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = ops.ell_spmv(x[:n], one_d[0], one_d[1], one_d[2],
@@ -1130,9 +1265,10 @@ def multi_resident(torch, dev, mesh, n, tiling, solo) -> int:
                             plus)
         check(ok, f"spmv_2d {sem} differs from the 1-D ell_spmv by {e_1d}")
         log(f"multi: spmv_2d {sem} on {LANES} x {LANES} tiles "
-            f"seconds={t_2d:.4f} (1-D ell_spmv: {t_1d:.4f}); max abs err "
-            f"{e_plain} against its plain version, {e_1d} against the 1-D "
-            f"product; launches {launches}")
+            f"seconds={secs['extents']:.4f} with extents, "
+            f"{secs['full']:.4f} without (1-D ell_spmv: {t_1d:.4f}); max "
+            f"abs err {e_plain} against its plain version, {e_1d} against "
+            f"the 1-D product; launches {launches}")
     return b4
 
 

@@ -54,7 +54,8 @@ from repro_torch.core.semiring import SEMIRINGS
 from repro_torch.core.shards import (SUBLANE, ELLShard, build_csr_shards,
                                      csr_to_ell)
 from repro_torch.dist.context import make_data_devices
-from repro_torch.kernels.spmv.ops import ell_gather_fold, ell_spmv
+from repro_torch.kernels.spmv.ops import (check_extents, ell_gather_fold,
+                                          ell_spmv)
 from repro_torch.kernels.spmv.ref import segment_combine
 
 
@@ -472,7 +473,8 @@ def _device_grid(devices, home: torch.device, D: int, S: int):
 
 def spmv_2d(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
             row_map: torch.Tensor, semiring: str, devices=None,
-            use_kernel: bool | str = "auto") -> torch.Tensor:
+            use_kernel: bool | str = "auto",
+            extents: torch.Tensor | None = None) -> torch.Tensor:
     """2-D partitioned SpMV: D destination blocks x S source ranges.
 
     ``cols``/``vals`` are ``[D, S, R, W]`` ELL tiles whose cols are LOCAL
@@ -483,7 +485,10 @@ def spmv_2d(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     a segment combine yields its ``[R]`` partial.  The S partials of a
     destination block combine by a sum for plus semirings and an
     elementwise min or max otherwise (the reference's psum / pmin over the
-    source axis).  Returns ``[D, R]`` on ``x``'s device.
+    source axis).  ``extents`` ``[D, S, R]`` (``ell_row_extents(cols)``,
+    int32, on ``cols``' device, built once with the tiles) let B4 read each
+    row only up to its last valid slot.  Returns ``[D, R]`` on ``x``'s
+    device.
     """
     D, S, R = cols.shape[:3]
     n = x.shape[0]
@@ -491,6 +496,8 @@ def spmv_2d(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"x has {n} entries, not a multiple of the {S} "
                          "source ranges")
     vb = n // S
+    if extents is not None:
+        check_extents(extents, cols)
     sem = SEMIRINGS[semiring]
     grid = _device_grid(devices, x.device, D, S)
     out = []
@@ -500,7 +507,8 @@ def spmv_2d(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
             dev = grid[d][s]
             partial = ell_gather_fold(
                 x[s * vb:(s + 1) * vb].to(dev), cols[d, s].to(dev),
-                vals[d, s].to(dev), semiring, use_kernel=use_kernel)
+                vals[d, s].to(dev), semiring, use_kernel=use_kernel,
+                extents=None if extents is None else extents[d, s].to(dev))
             seg = segment_combine(partial.reshape(-1), row_map[d, s].to(dev),
                                   R, semiring).to(x.device)
             if acc is None:

@@ -18,7 +18,8 @@ Kernels and the Pallas TPU kernels they replace
     ``xg [R, W, K]`` -> [R, K].
   * ``ell_gather_fold``      — ``ell_gather_fold_pallas``: a 2-D tile whose
     cols index one source block ``x_blk [VB]`` -> [R, 1], gathered
-    through L2.
+    through L2, each row read up to its extent when the tile's
+    ``ell_row_extents`` are given.
 
 The batched wrappers hand K = 1 to the single-column kernels (and count it
 under their names).  Each wrapper checks device, dtype, shape, contiguity
@@ -115,20 +116,20 @@ def _library() -> ctypes.CDLL:
                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_float, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            # (x_blk, cols, vals, out, rows, width, semiring, dtype, scale,
-            #  zero, stream)
+            # (x_blk, cols, vals, extents, out, rows, width, semiring,
+            #  dtype, scale, zero, stream)
             lib.ell_gather_fold.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_void_p]
             lib.ell_gather_fold.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
-           ndim: int) -> None:
+           ndim: int, align: int = 16) -> None:
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor on {device}, "
                          f"got {t.device}")
@@ -137,8 +138,9 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         "aligned")
 
 
 def _edges(cols: torch.Tensor, vals: torch.Tensor, device: torch.device,
@@ -213,8 +215,9 @@ def ell_spmv_fused_batch(x: torch.Tensor, cols: torch.Tensor,
                          vals: torch.Tensor, semiring: Semiring | str,
                          qparams=None) -> torch.Tensor:
     """[n, K] frontier + [R, W] blocked-ELL -> [R, K] partials, gathering
-    ``x[cols, :]`` inside the kernel."""
-    _check("x", x, x.device, (torch.float32,), 2)
+    ``x[cols, :]`` inside the kernel (float4 loads when K % 4 == 0 and
+    ``x`` is 16-byte aligned, else one float a lane)."""
+    _check("x", x, x.device, (torch.float32,), 2, align=4)
     return _launch("ell_spmv_fused", x, cols, vals, semiring, qparams,
                    x.shape[1])
 
@@ -222,7 +225,7 @@ def ell_spmv_fused_batch(x: torch.Tensor, cols: torch.Tensor,
 def ell_fold_batch(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
                    semiring: Semiring | str, qparams=None) -> torch.Tensor:
     """[R, W, K] pre-gathered sources + shared [R, W] edges -> [R, K]."""
-    _check("xg", xg, xg.device, (torch.float32,), 3)
+    _check("xg", xg, xg.device, (torch.float32,), 3, align=4)
     if xg.shape[:2] != cols.shape:
         raise ValueError(f"xg {tuple(xg.shape)} and cols {tuple(cols.shape)} "
                          "differ in their first two dims")
@@ -232,10 +235,13 @@ def ell_fold_batch(xg: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
 
 def ell_gather_fold(x_blk: torch.Tensor, cols: torch.Tensor,
                     vals: torch.Tensor, semiring: Semiring | str,
-                    qparams=None) -> torch.Tensor:
+                    qparams=None,
+                    extents: torch.Tensor | None = None) -> torch.Tensor:
     """[VB] source block + [R, W] blocked-ELL tile whose cols are local to
     the block (``-1`` or in ``[0, VB)``, which the kernel does not check)
-    -> [R, 1] per-ELL-row partials."""
+    -> [R, 1] per-ELL-row partials.  ``extents`` (int32 [R],
+    ``ref.ell_row_extents(cols)``) bound each row's walk; ``None`` walks
+    all W slots."""
     device = x_blk.device
     # the kernel reads x_blk one float at a time, so a block sliced out of
     # a frontier at any vertex will do: no 16-byte alignment asked
@@ -245,14 +251,22 @@ def ell_gather_fold(x_blk: torch.Tensor, cols: torch.Tensor,
                          f"tensor, got {x_blk.dtype} {tuple(x_blk.shape)} "
                          f"on {device}")
     rows, width, *args = _edges(cols, vals, device, semiring, qparams)
+    if extents is not None:
+        # read one int a row: float alignment will do
+        _check("extents", extents, device, (torch.int32,), 1, align=4)
+        if extents.shape[0] != rows:
+            raise ValueError(f"extents have {extents.shape[0]} rows, the "
+                             f"tile {rows}")
     out = torch.empty((rows, 1), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.ell_gather_fold(x_blk.data_ptr(), cols.data_ptr(),
-                                 vals.data_ptr(), out.data_ptr(), rows,
-                                 width, *args, stream)
+        rc = lib.ell_gather_fold(
+            x_blk.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            None if extents is None else extents.data_ptr(), out.data_ptr(),
+            rows, width, *args, stream)
     _counted("ell_gather_fold", rc,
              f"rows={rows}, width={width}, vb={x_blk.shape[0]}, "
-             f"semiring={semiring}, vals={vals.dtype}")
+             f"extents={extents is not None}, semiring={semiring}, "
+             f"vals={vals.dtype}")
     return out

@@ -24,7 +24,8 @@ rounding.
 
 ``ell_gather_fold`` folds one 2-D tile of ``core.distributed.spmv_2d``:
 its cols are local to a source block ``x_blk``, from which the kernel
-gathers.
+gathers.  Given the tile's ``ell_row_extents`` it reads each row only up to
+its last valid slot.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.kernels.spmv import cuda as _cuda
 from repro_torch.kernels.spmv import ref as _ref
+from repro_torch.kernels.spmv.ref import ell_row_extents  # noqa: F401
 
 USE_KERNEL_CHOICES = (True, False, "auto")
 
@@ -74,13 +76,32 @@ def ell_fold(xg, vals, cols, semiring, use_kernel="auto", qparams=None):
 
 
 def ell_gather_fold(x_blk, cols, vals, semiring, use_kernel="auto",
-                    qparams=None):
-    """[VB] source block + [R, W] tile with local cols -> [R, 1]."""
+                    qparams=None, extents=None):
+    """[VB] source block + [R, W] tile with local cols -> [R, 1].
+
+    ``extents`` is the tile's ``ell_row_extents(cols)`` (int32 [R], on the
+    tile's device, built once with the tile): the fold then reads each row
+    only up to its last valid slot.  ``None`` walks every slot."""
+    if extents is not None:
+        check_extents(extents, cols)
     if uses_kernel(use_kernel, x_blk.device):
-        return _cuda.ell_gather_fold(x_blk, cols, vals, semiring, qparams)
+        return _cuda.ell_gather_fold(x_blk, cols, vals, semiring, qparams,
+                                     extents)
     return _ref.ell_gather_fold_ref(x_blk, cols,
                                     _ref.maybe_dequantize(vals, qparams),
-                                    semiring)
+                                    semiring, extents)
+
+
+def check_extents(extents, cols) -> None:
+    """Raise unless ``extents`` are int32 row extents of the ``[..., R, W]``
+    ``cols`` on the same device."""
+    if extents.device != cols.device:
+        raise ValueError(f"extents lie on {extents.device}, the tile on "
+                         f"{cols.device}")
+    if extents.dtype != torch.int32 or extents.shape != cols.shape[:-1]:
+        raise ValueError(f"extents must be int32 of shape "
+                         f"{tuple(cols.shape[:-1])}, got {extents.dtype} "
+                         f"{tuple(extents.shape)}")
 
 
 def ell_spmv(x, cols, vals, row_map, num_segments: int, semiring,

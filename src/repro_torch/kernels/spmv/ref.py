@@ -62,10 +62,27 @@ def ell_fold_batch_ref(xg: torch.Tensor, vals: torch.Tensor,
     return _as_semiring(semiring).fold_batch(vals, xg, cols >= 0)
 
 
+def ell_row_extents(cols: torch.Tensor) -> torch.Tensor:
+    """``[..., W]`` cols -> int32 ``[...]`` row extents: ``1 +`` the last
+    slot of the row with ``cols >= 0``, 0 for an all-padding row.
+
+    Slots at ``w >= ext`` are padding by definition, so a fold may skip them
+    on any input, prefix-packed or not.  They belong to a tile's layout:
+    build them once, where the tile is laid out, not per call."""
+    w = torch.arange(1, cols.shape[-1] + 1, dtype=torch.int32,
+                     device=cols.device)
+    return torch.where(cols >= 0, w, 0).amax(dim=-1).to(torch.int32)
+
+
 def ell_gather_fold_ref(x_blk: torch.Tensor, cols: torch.Tensor,
-                        vals: torch.Tensor,
-                        semiring: Semiring | str) -> torch.Tensor:
-    """2-D-tiled variant: cols index a small *local* source block x_blk [VB]."""
+                        vals: torch.Tensor, semiring: Semiring | str,
+                        extents: torch.Tensor | None = None) -> torch.Tensor:
+    """2-D-tiled variant: cols index a small *local* source block x_blk [VB].
+    With ``extents`` ([R], ``ell_row_extents``), slots at ``w >= ext[r]``
+    count as padding."""
+    if extents is not None:
+        w = torch.arange(cols.shape[1], device=cols.device)
+        cols = torch.where(w < extents[:, None], cols, -1)
     return ell_fold_ref(gather(x_blk, cols), vals, cols, semiring)
 
 

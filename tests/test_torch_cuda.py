@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core.semiring import SEMIRINGS
-from repro_torch.core.shards import CSRShard, csr_to_ell, quantize_shard
+from repro_torch.core.shards import (CSRShard, csr_to_ell, quantize_edge_vals,
+                                     quantize_shard)
 from repro_torch.graph.generate import materialize, rmat_edges
 from repro_torch.graph.preprocess import preprocess_graph
 from repro_torch.graph.storage import write_edge_list
@@ -82,35 +83,66 @@ def test_kernels_match_plain(dev, semiring, dtype):
     assert cuda.launches["ell_fold"] == before["ell_fold"] + 1
 
 
+def _scattered(seed, dtype, num_rows=1000, n_src=50_000, width=512):
+    """[R, W] edges of four kinds of rows, by row % 4: valid slots a prefix,
+    valid slots scattered (not a prefix), all padding, all valid.
+    -> (cols, vals, qparams)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n_src, size=(num_rows, width)).astype(np.int32)
+    deg = np.minimum(rng.zipf(1.8, size=num_rows), width)
+    cols[0::4][np.arange(width) >= deg[0::4, None]] = -1
+    cols[1::4][rng.random((len(cols[1::4]), width))
+               < rng.random((len(cols[1::4]), 1))] = -1
+    cols[2::4] = -1
+    w = np.where(cols >= 0, rng.random(cols.shape) * 9 + 0.5,
+                 0).astype(np.float32)
+    vals, *qp = (w, 1.0, 0.0) if dtype == "float32" else \
+        quantize_edge_vals(w, dtype)
+    return cols, vals, tuple(qp)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    skip = 1 + (-buf.data_ptr() // 4) % 4
+    view = buf[skip:skip + t.numel()].view(t.shape)
+    assert view.data_ptr() % 16 == 4
+    return view.copy_(t)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float16", "int8"])
 @pytest.mark.parametrize("semiring", SEMIS)
-@pytest.mark.parametrize("k", [2, 3, 16, 33, 64])
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 8, 16, 17, 32, 33, 64])
 def test_batch_kernels_match_plain(dev, k, semiring, dtype):
-    """B1 at K > 1 and B3 against their plain versions; K = 33 and 64 take
-    more than one 32-column chunk, K = 3 leaves lanes of a group idle."""
-    ell = _shard(k + len(semiring), dtype, num_rows=1500)
+    """B1 at K > 1 and B3 against their plain versions, on a W = 512 tile
+    with prefix, scattered, all-padding and full rows.  K % 4 == 0 with an
+    aligned frontier takes float4 loads; K = 3, 5, 17, 33 and a frontier
+    view 4 bytes past alignment take the scalar loads; K = 33 and 64 take
+    more than one column chunk in the scalar path."""
+    cols, vals, qp = _scattered(k + len(semiring), dtype)
     rng = np.random.default_rng(k)
     x = torch.from_numpy((rng.random((50_000, k)) * 100)
                          .astype(np.float32)).to(dev)
     if not SEMIRINGS[semiring].is_plus:
         x[torch.from_numpy(rng.random((50_000, k)) < 0.2).to(dev)] = \
             float("inf")
-    cols = torch.from_numpy(ell.cols).to(dev)
-    vals = torch.from_numpy(ell.vals).to(dev)
-    qp = (ell.val_scale, ell.val_zero)
+    cols = torch.from_numpy(cols).to(dev)
+    vals = torch.from_numpy(vals).to(dev)
     xg = ref.gather(x, cols)
     want = ref.ell_fold_batch_ref(xg, ref.maybe_dequantize(vals, qp), cols,
                                   semiring)
     before = dict(cuda.launches)
-    got = cuda.ell_spmv_fused_batch(x, cols, vals, semiring, qp)
-    _assert_close(got, want, semiring)
-    got = cuda.ell_fold_batch(xg, vals, cols, semiring, qp)
-    torch.cuda.synchronize()
-    _assert_close(got, want, semiring)
-    assert got.shape == (ell.shape[0], k)
+    for xs, g in ((x, xg), (_unaligned(x), _unaligned(xg))):
+        got = cuda.ell_spmv_fused_batch(xs, cols, vals, semiring, qp)
+        _assert_close(got, want, semiring)
+        got = cuda.ell_fold_batch(g, vals, cols, semiring, qp)
+        torch.cuda.synchronize()
+        _assert_close(got, want, semiring)
+        assert got.shape == (cols.shape[0], k)
     assert cuda.launches["ell_spmv_fused_batch"] == \
-        before["ell_spmv_fused_batch"] + 1
-    assert cuda.launches["ell_fold_batch"] == before["ell_fold_batch"] + 1
+        before["ell_spmv_fused_batch"] + 2
+    assert cuda.launches["ell_fold_batch"] == before["ell_fold_batch"] + 2
 
 
 def test_batch_wrappers_at_k1_take_the_single_column_kernels(dev):
@@ -152,6 +184,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="first two dims"):
         cuda.ell_fold_batch(torch.ones(4, 128, 2, device=dev), vals, cols,
                             "min_plus")
+    ext = ops.ell_row_extents(cols)
+    with pytest.raises(ValueError, match="extents lie on cpu"):
+        ops.ell_gather_fold(x, cols, vals, "min_plus", extents=ext.cpu())
+    with pytest.raises(ValueError, match="extents have"):
+        cuda.ell_gather_fold(x, cols, vals, "min_plus", extents=ext[1:])
 
 
 @pytest.mark.parametrize("vb", [4096, 50_000])
@@ -159,8 +196,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("semiring", SEMIS)
 def test_gather_fold_kernel_matches_plain(dev, semiring, dtype, vb):
     """B4 on a tile whose cols are local to a source block of 16 KB or
-    200 KB.  The block starts 3 floats into a larger array: B4 needs only
-    float alignment."""
+    200 KB, without and with the tile's row extents (on prefix rows, and on
+    rows whose valid slots are scattered).  The block starts 3 floats into
+    a larger array: B4 needs only float alignment."""
     ell = _shard(vb + len(semiring), dtype, n_src=vb)
     rng = np.random.default_rng(vb)
     x = torch.from_numpy((rng.random(vb + 7) * 100).astype(np.float32)).to(dev)
@@ -170,33 +208,45 @@ def test_gather_fold_kernel_matches_plain(dev, semiring, dtype, vb):
     cols = torch.from_numpy(ell.cols).to(dev)
     vals = torch.from_numpy(ell.vals).to(dev)
     qp = (ell.val_scale, ell.val_zero)
-    before = cuda.launches["ell_gather_fold"]
-    got = ops.ell_gather_fold(x_blk, cols, vals, semiring, qparams=qp)
-    want = ops.ell_gather_fold(x_blk, cols, vals, semiring, use_kernel=False,
-                               qparams=qp)
-    torch.cuda.synchronize()
-    _assert_close(got, want, semiring)
-    assert cuda.launches["ell_gather_fold"] == before + 1
+    tiles = [(cols, vals, qp)]
+    c, v, q = _scattered(vb, dtype, n_src=vb, width=256)
+    tiles.append((torch.from_numpy(c).to(dev), torch.from_numpy(v).to(dev),
+                  q))
+    for cols, vals, qp in tiles:
+        want = ops.ell_gather_fold(x_blk, cols, vals, semiring,
+                                   use_kernel=False, qparams=qp)
+        ext = ops.ell_row_extents(cols)
+        for extents in (None, ext):
+            before = cuda.launches["ell_gather_fold"]
+            got = ops.ell_gather_fold(x_blk, cols, vals, semiring, qparams=qp,
+                                      extents=extents)
+            torch.cuda.synchronize()
+            _assert_close(got, want, semiring)
+            assert cuda.launches["ell_gather_fold"] == before + 1
 
 
 def test_spmv_2d_on_card(dev):
-    """spmv_2d on a 2 x 2 grid of lanes on one card: one B4 launch a tile,
-    equal to the plain version (min_plus bitwise)."""
+    """spmv_2d on a 2 x 2 grid of lanes on one card, without and with the
+    tiles' row extents: one B4 launch a tile, equal to the plain version
+    (min_plus bitwise)."""
     from repro_torch.core.distributed import spmv_2d
     rng = np.random.default_rng(0)
     D, S, R, W, nloc = 2, 2, 4000, 256, 30_000
     cols = rng.integers(-1, nloc, size=(D, S, R, W)).astype(np.int32)
+    cols[:, :, ::2, 40:] = -1  # short rows for the extents to cut
     vals = rng.random((D, S, R, W)).astype(np.float32)
     row_map = np.sort(rng.integers(0, R, size=(D, S, R)), -1).astype(np.int32)
     x = rng.random(S * nloc).astype(np.float32)
     args = [torch.from_numpy(a).to(dev) for a in (x, cols, vals, row_map)]
     grid = [[torch.device("cuda", 0)] * S] * D
+    ext = ops.ell_row_extents(args[1])
     for semiring in ("plus_times", "min_plus"):
-        before = cuda.launches["ell_gather_fold"]
-        got = spmv_2d(*args, semiring, devices=grid)
-        assert cuda.launches["ell_gather_fold"] == before + D * S
         want = spmv_2d(*args, semiring, devices=grid, use_kernel=False)
-        _assert_close(got, want, semiring)
+        for extents in (None, ext):
+            before = cuda.launches["ell_gather_fold"]
+            got = spmv_2d(*args, semiring, devices=grid, extents=extents)
+            assert cuda.launches["ell_gather_fold"] == before + D * S
+            _assert_close(got, want, semiring)
 
 
 @pytest.fixture(scope="module")

@@ -219,19 +219,26 @@ def test_distributed_vsw_matches_reference(reference, app):
             np.testing.assert_array_equal(vals, want[f"dvsw/{app}/values"])
 
 
-@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
-def test_spmv_2d_matches_reference(reference, semiring):
+@pytest.mark.parametrize(
+    "semiring,with_extents",
+    [(s, e) for e in (False, True) for s in ("plus_times", "min_plus")],
+    ids=["plus_times", "min_plus", "plus_times-extents", "min_plus-extents"])
+def test_spmv_2d_matches_reference(reference, semiring, with_extents):
+    """The tiles' cols hold -1 anywhere in a row, so their extents skip only
+    each row's padding tail."""
     _store, want = reference
     args = [torch.from_numpy(want[f"spmv2d/{semiring}/{name}"])
             for name in ("x", "cols", "vals", "row_map")]
-    got = spmv_2d(*args, semiring, devices=[["cpu"] * 2] * 2).numpy()
+    ext = ops.ell_row_extents(args[1]) if with_extents else None
+    got = spmv_2d(*args, semiring, devices=[["cpu"] * 2] * 2,
+                  extents=ext).numpy()
     ref_out = want[f"spmv2d/{semiring}/out"].reshape(got.shape)
     if semiring == "plus_times":
         np.testing.assert_allclose(got, ref_out, rtol=PLUS_RTOL, atol=0)
     else:
         np.testing.assert_array_equal(got, ref_out)
     # the same product with the plain version named explicitly
-    plain = spmv_2d(*args, semiring, use_kernel=False).numpy()
+    plain = spmv_2d(*args, semiring, use_kernel=False, extents=ext).numpy()
     np.testing.assert_array_equal(plain, got)
 
 
@@ -245,6 +252,12 @@ def test_spmv_2d_rejects_bad_shapes():
     with pytest.raises(ValueError, match="2 x 2 grid"):
         spmv_2d(torch.ones(8), cols, vals, rmap, "min_plus",
                 devices=[["cpu"] * 2])
+    ext = ops.ell_row_extents(cols)
+    with pytest.raises(ValueError, match="extents lie on meta"):
+        spmv_2d(torch.ones(8), cols, vals, rmap, "min_plus",
+                extents=ext.to("meta"))
+    with pytest.raises(ValueError, match="shape"):
+        spmv_2d(torch.ones(8), cols, vals, rmap, "min_plus", extents=ext[0])
 
 
 # ---------------------------------------------------------------------------

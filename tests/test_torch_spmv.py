@@ -21,7 +21,8 @@ import torch
 from repro.kernels.spmv import ops as jops
 from repro.kernels.spmv import ref as jref
 from repro_torch.core.semiring import SEMIRINGS
-from repro_torch.core.shards import CSRShard, csr_to_ell, quantize_shard
+from repro_torch.core.shards import (CSRShard, csr_to_ell, quantize_edge_vals,
+                                     quantize_shard)
 from repro_torch.kernels.spmv import cuda, ops, ref
 
 SEMIS = list(SEMIRINGS)
@@ -119,6 +120,73 @@ def test_ell_gather_fold_matches_reference(semiring):
                               torch.from_numpy(ell.vals), semiring,
                               qparams=_qp(ell))
     _assert_matches(got.numpy(), np.asarray(want), semiring, "int8")
+
+
+def _scattered_tile(seed: int, width: int) -> np.ndarray:
+    """[R, W] cols whose sentinels are scattered inside rows (valid slots
+    not a prefix), with all-padding rows (0, 5, 10, ...) and full rows
+    (1, 6, 11, ...)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, N_SRC, size=(40, width)).astype(np.int32)
+    holes = rng.random(cols.shape) < rng.random((40, 1))
+    cols[holes] = -1
+    cols[0::5] = -1
+    cols[1::5] = rng.integers(0, N_SRC, size=(8, width))
+    return cols
+
+
+@pytest.mark.parametrize("width", [128, 512])
+def test_ell_row_extents_matches_numpy(width):
+    cols = _scattered_tile(width, width)
+    valid = cols >= 0
+    last = width - np.argmax(valid[:, ::-1], axis=1)
+    want = np.where(valid.any(1), last, 0)
+    got = ops.ell_row_extents(torch.from_numpy(cols))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[0::5] == 0).all() and (want[1::5] == width).all()
+    assert ((want > 0) & (want < width)).any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("semiring", SEMIS)
+def test_ell_gather_fold_extents_match_reference(semiring, dtype):
+    """B4's plain version with the tile's row extents equals the call
+    without them and the reference's ``ell_gather_fold_ref``, on a tile
+    whose valid slots are not a prefix."""
+    cols = _scattered_tile(len(semiring), 256)
+    rng = np.random.default_rng(2)
+    w = np.where(cols >= 0, rng.random(cols.shape) * 9 + 0.5,
+                 0).astype(np.float32)
+    vals, *qp = (w, 1.0, 0.0) if dtype == "float32" else \
+        quantize_edge_vals(w, dtype)
+    x = _frontier(len(semiring), semiring)
+    args = (torch.from_numpy(x), torch.from_numpy(cols),
+            torch.from_numpy(vals), semiring)
+    ext = ops.ell_row_extents(args[1])
+    got = ops.ell_gather_fold(*args, qparams=qp, extents=ext).numpy()
+    full = ops.ell_gather_fold(*args, qparams=qp).numpy()
+    np.testing.assert_array_equal(got, full)
+    want = jref.ell_gather_fold_ref(
+        jnp.asarray(x), jnp.asarray(cols),
+        jref.maybe_dequantize(jnp.asarray(vals),
+                              jnp.asarray(qp, jnp.float32)), semiring)
+    _assert_matches(got, np.asarray(want), semiring, dtype)
+
+
+def test_extents_are_checked():
+    """Extents on another torch device than the tile's, or of the wrong
+    dtype or shape, are refused."""
+    cols = torch.from_numpy(_scattered_tile(0, 128))
+    x, vals = torch.ones(N_SRC), torch.ones(cols.shape)
+    ext = ops.ell_row_extents(cols)
+    with pytest.raises(ValueError, match="extents lie on meta"):
+        ops.ell_gather_fold(x, cols, vals, "min_plus",
+                            extents=ext.to("meta"))
+    with pytest.raises(ValueError, match="int32"):
+        ops.ell_gather_fold(x, cols, vals, "min_plus", extents=ext.long())
+    with pytest.raises(ValueError, match="shape"):
+        ops.ell_gather_fold(x, cols, vals, "min_plus", extents=ext[1:])
 
 
 @pytest.mark.parametrize("semiring", SEMIS)
