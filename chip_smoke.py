@@ -51,7 +51,25 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    tiles' extents and without, against its plain version and the 1-D
    ``ops.ell_spmv`` of the same graph.  Each
    run's seconds are printed beside the single-lane ones, and each kernel's
-   launches must equal the shards, lane-iterations or tiles it processed.
+   launches must equal the shards, lane-iterations or tiles it processed;
+8. storage and mutation — (a) ``pack_graph`` of the store, then
+   ``backend="packed"`` runs the four apps and ``backend="memory"`` bfs and
+   sssp, equal to phase 4 (values, iterations, shards processed, disk
+   bytes); (b) ``mutable=True`` over the packed file: cold sssp, bfs and cc
+   from source 0, a commit of 4,096 new unit-weight edges (seed 2: sources
+   uniform over the vertices with out-edges, destinations uniform over the
+   intervals of 4 shards), then ``run_incremental`` of each, bitwise equal
+   to a cold run and sweeping no more shards, and sssp through the gather +
+   fold kernel; (c) a commit deleting 256 of those edges and 256 base
+   edges, after which ``run_incremental`` is the cold run; (d) ``compact``
+   and a fresh frozen session on the compacted file, equal to the mutable
+   session; (e) ``session.service(max_batch=16)`` answering sssp/bfs from 4
+   client threads while ``svc.apply_mutations`` commits three batches of
+   1,024 edges, every answer submitted after the last commit equal to a
+   cold solo run; (f) a commit in the middle of a pagerank run at prefetch
+   depth 2 raises ``ConcurrentMutationError`` and the next run finishes at
+   the new epoch.  The phase's launches must equal the shards its runs
+   processed (B2: the gather + fold sssp).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -1272,6 +1290,361 @@ def multi_resident(torch, dev, mesh, n, tiling, solo) -> int:
     return b4
 
 
+# --------------------------------------------------------------------------
+def phase_storage(torch, store_path: str, solo, sources) -> dict:
+    """Phase 8: the packed and memory backends and the mutable graph on the
+    card.  ``solo`` holds phase 4's results by (variant, app), ``sources``
+    phase 5's.  Returns the phase's launch counts (set to 0 at its start)."""
+    import numpy as np
+
+    from repro_torch.graph.packed import pack_graph
+    from repro_torch.graph.storage import GraphStore
+    from repro_torch.kernels.spmv import cuda
+
+    cuda.reset_launches()
+    # shards processed by runs through each kernel, from IterationStats:
+    # "fold" while the gather + fold run is on, "fused" otherwise (K = 1
+    # and the service's batches, which launch either fused kernel)
+    shards = {"fused": 0, "fold": 0}
+    kernel = ["fused"]
+    lock = threading.Lock()  # the service's runners sweep concurrently
+
+    def observe(st):
+        with lock:
+            shards[kernel[0]] += st.shards_processed
+
+    t0 = time.perf_counter()
+    packed = pack_graph(GraphStore(store_path))
+    log(f"storage: pack_graph wrote {packed.stat().st_size} bytes in "
+        f"{time.perf_counter() - t0:.1f}s")
+    storage_backends(store_path, packed, solo, observe)
+    mutable_graph(packed, sources, observe, shards, kernel)
+    launches = dict(cuda.launches)
+    fused = launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
+    check(fused == shards["fused"] > 0
+          and launches["ell_fold"] == shards["fold"] > 0
+          and launches["ell_spmv_fused_batch"] > 0
+          and launches["ell_fold_batch"] == 0,
+          f"storage: launches {launches}, expected {shards['fused']} fused "
+          f"(some batched) and {shards['fold']} fold")
+    log(f"storage: all checks passed; launches {launches}")
+    return launches
+
+
+def _equal_runs(np, got, want, what: str) -> None:
+    """``got`` equals ``want``: iterations and shards processed, values
+    bitwise (PageRank to PR_RTOL)."""
+    check(got.iterations == want.iterations,
+          f"{what}: {got.iterations} iterations, expected {want.iterations}")
+    check(sum(h.shards_processed for h in got.history)
+          == sum(h.shards_processed for h in want.history),
+          f"{what}: shards processed differ")
+    if got.tag.startswith("pagerank"):
+        rel = _max_rel_err(np, got.values, want.values)
+        check(rel <= PR_RTOL, f"{what}: off by {rel} (rtol {PR_RTOL})")
+    else:
+        check(np.array_equal(got.values, want.values),
+              f"{what}: values differ")
+
+
+def _run_line(label: str, r, other=None) -> str:
+    fetch = sum(h.fetch_seconds for h in r.history)
+    line = (f"{label} iterations={r.iterations} "
+            f"shards={sum(h.shards_processed for h in r.history)} "
+            f"seconds={r.total_seconds:.3f} fetch_s={fetch:.3f} "
+            f"disk_bytes={sum(h.disk_bytes for h in r.history)}")
+    if other is not None:
+        line += (f" | {other[0]} iterations={other[1].iterations} "
+                 f"shards={sum(h.shards_processed for h in other[1].history)}"
+                 f" seconds={other[1].total_seconds:.3f} fetch_s="
+                 f"{sum(h.fetch_seconds for h in other[1].history):.3f}")
+    return line
+
+
+def storage_backends(store_path: str, packed, solo, observe) -> None:
+    """(a) The four apps on ``backend="packed"`` and bfs/sssp on
+    ``backend="memory"``, against phase 4's npz runs."""
+    import numpy as np
+
+    from repro_torch.session import GraphSession
+
+    runs = [("pagerank", dict(max_iters=10)), ("sssp", dict(source=0)),
+            ("bfs", dict(source=0)), ("cc", {})]
+    with GraphSession(store_path, backend="packed", cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        check(type(s.store).__name__ == "PackedGraphStore",
+              f"backend='packed' opened a {type(s.store).__name__}")
+        s.iteration_observers.append(observe)
+        for app, kw in runs:  # phase 4's order: the first app reads cold
+            r, want = s.run(app, **kw), solo["fused", app]
+            log(_run_line(f"storage: packed {app:8s}", r, ("npz", want)))
+            _equal_runs(np, r, want, f"packed {app}")
+            check(sum(h.disk_bytes for h in r.history)
+                  == sum(h.disk_bytes for h in want.history),
+                  f"packed {app}: disk bytes differ from phase 4's")
+        store = s.store
+    check(store._mm.closed, "session.close() left the packed mmap open")
+    t0 = time.perf_counter()
+    with GraphSession(str(packed), backend="memory", cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        log(f"storage: memory backend loaded from the packed file in "
+            f"{time.perf_counter() - t0:.1f}s")
+        s.warm()  # as phase 4's later apps: every shard already cached
+        s.iteration_observers.append(observe)
+        for app, kw in runs[2:0:-1]:
+            r, want = s.run(app, **kw), solo["fused", app]
+            log(_run_line(f"storage: memory {app:8s}", r, ("npz", want)))
+            _equal_runs(np, r, want, f"memory {app}")
+            check(sum(h.disk_bytes for h in r.history) == 0,
+                  f"memory {app}: disk bytes after warm()")
+
+
+def _new_edges(np, s, rng, count: int, targets) -> tuple:
+    """``count`` edges absent from the graph: sources uniform over the
+    vertices with out-edges, destinations uniform over the intervals of the
+    shards ``targets``."""
+    n = s.n
+    iv = s.store.intervals
+    pool = np.concatenate([np.arange(iv[p], iv[p + 1]) for p in targets])
+    have = []
+    for p in targets:
+        shard = s.store.read_shard(p)
+        r, c = np.nonzero(shard.cols >= 0)
+        have.append((shard.row_map[r].astype(np.int64) + shard.start_vertex)
+                    * n + shard.cols[r, c])
+        del shard
+    have = np.concatenate(have)
+    cand = np.nonzero(s.out_deg > 0)[0]
+    src = cand[rng.integers(0, cand.size, 2 * count)].astype(np.int64)
+    dst = pool[rng.integers(0, pool.size, 2 * count)].astype(np.int64)
+    keys = dst * n + src
+    ok = (src != dst) & ~np.isin(keys, have)
+    _, first = np.unique(keys, return_index=True)
+    keep = np.zeros(keys.size, dtype=bool)
+    keep[first] = True
+    sel = np.nonzero(ok & keep)[0][:count]
+    check(sel.size == count, f"drew {sel.size} new edges, wanted {count}")
+    return src[sel], dst[sel]
+
+
+def mutable_graph(packed, sources, observe, shards, kernel) -> None:
+    """(b)-(f): incremental runs after a monotone commit, a delete that
+    forces the cold fallback, compaction, the service under mutation and a
+    commit in the middle of a prefetching run."""
+    import numpy as np
+
+    from repro_torch.graph.compact import compact
+    from repro_torch.graph.source import ConcurrentMutationError
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.session import GraphSession
+
+    apps = [("sssp", dict(source=0)), ("bfs", dict(source=0)), ("cc", {})]
+    s = GraphSession(str(packed), mutable=True, cache_mode=1,
+                     cache_budget_bytes=CACHE_BUDGET)
+    try:
+        s.iteration_observers.append(observe)
+        prev = {app: s.run(app, **kw) for app, kw in apps}
+        # (b) a burst of 4,096 new unit-weight links into 4 shards
+        rng = np.random.default_rng(2)
+        targets = sorted(int(p) for p in rng.choice(s.store.num_shards, 4,
+                                                    replace=False))
+        ins = _new_edges(np, s, rng, 4096, targets)
+        t0 = time.perf_counter()
+        epoch = s.apply_mutations(inserts=ins)
+        check(epoch == 1 and s.store.dirty_shards() == targets,
+              f"commit: epoch {epoch}, dirty {s.store.dirty_shards()}")
+        log(f"mutable: committed 4096 inserts into shards {targets} in "
+            f"{time.perf_counter() - t0:.1f}s; n_pad={s.n_pad}")
+        before = dict(cuda.launches)
+        processed = shards["fused"]
+        cold = {}
+        for app, kw in apps:
+            inc = s.run_incremental(app, prev=prev[app], **kw)
+            cold[app] = s.run(app, **kw)
+            log(_run_line(f"mutable: incremental {app:4s}", inc,
+                          ("cold", cold[app])))
+            check(np.array_equal(inc.values, cold[app].values)
+                  and inc.epoch == cold[app].epoch == 1,
+                  f"incremental {app} differs from a cold run")
+            check(sum(h.shards_processed for h in inc.history)
+                  <= sum(h.shards_processed for h in cold[app].history)
+                  and inc.iterations <= cold[app].iterations,
+                  f"incremental {app} swept more than a cold run")
+        check(cuda.launches["ell_spmv_fused"] - before["ell_spmv_fused"]
+              == shards["fused"] - processed,
+              "incremental and cold runs: B1 launches differ from the "
+              "shards they processed")
+        kernel[0] = "fold"
+        r = s.run("sssp", source=0,
+                  config=s.config.replace(fused_gather=False))
+        kernel[0] = "fused"
+        check(np.array_equal(r.values, cold["sssp"].values),
+              "sssp through gather + fold differs on the merged shards")
+        # (c) deletes: 256 of the new edges and 256 base edges of the same
+        # shards, so the commit is not monotone
+        base = []
+        for p in targets:
+            shard = s.store.base.read_shard(p)
+            rr, cc = np.nonzero(shard.cols >= 0)
+            pick = rng.choice(rr.size, 64, replace=False)
+            base.append((shard.cols[rr[pick], cc[pick]].astype(np.int64),
+                         shard.row_map[rr[pick]].astype(np.int64)
+                         + shard.start_vertex))
+            del shard
+        dels = (np.concatenate([ins[0][:256]] + [b[0] for b in base]),
+                np.concatenate([ins[1][:256]] + [b[1] for b in base]))
+        s.apply_mutations(deletes=dels)
+        check(not s.store.monotone_since(1), "a delete left the log monotone")
+        final = {}
+        for app, kw in apps:
+            inc = s.run_incremental(app, prev=cold[app], **kw)
+            final[app] = s.run(app, **kw)
+            log(_run_line(f"mutable: after delete {app:4s}", inc,
+                          ("cold", final[app])))
+            check(inc.iterations == final[app].iterations
+                  and np.array_equal(inc.values, final[app].values),
+                  f"{app} after a delete: run_incremental is not the cold "
+                  "fallback")
+        # (d) compaction, then a fresh frozen session on the file
+        rep = compact(s.store)
+        log(f"mutable: compact rewrote shards {list(rep.shards_rewritten)}: "
+            f"{rep.bytes_written} bytes written, {rep.dead_bytes} dead, "
+            f"{rep.seconds:.1f}s")
+        check(list(rep.shards_rewritten) == targets
+              and not s.store.dirty_shards(), "compaction left dirty shards")
+        with GraphSession(str(packed), cache_mode=1,
+                          cache_budget_bytes=CACHE_BUDGET) as fresh:
+            fresh.iteration_observers.append(observe)
+            for app, kw in apps:
+                r = fresh.run(app, **kw)
+                check(np.array_equal(r.values, final[app].values),
+                      f"{app} on the compacted file differs from the "
+                      "mutable session")
+        log("mutable: the compacted file gives the mutable session's "
+            "sssp/bfs/cc")
+        # (e) and (f)
+        mutated_service(np, s, sources, targets, rng)
+        # (its runs add to shards["fused"] while it runs)
+        torn = mid_run_commit(s, rng, targets, ConcurrentMutationError)
+        shards["fused"] += torn
+    finally:
+        s.close()
+    check(s.store.base._mm.closed,
+          "session.close() left the mutable session's mmap open")
+
+
+def mutated_service(np, s, sources, targets, rng) -> None:
+    """(e) 4 client threads query sssp/bfs while three insert batches of
+    1,024 edges commit through ``svc.apply_mutations``."""
+    during, after = sources[:2], sources[2:4]
+    errors, answers = [], []  # answers: (app, source, result) of queries
+    #                           submitted after the last commit returned
+    stop, started, last = threading.Event(), threading.Barrier(5), [None]
+    rounds_after = [0] * 4  # each client's rounds begun after it
+
+    def client(c):
+        try:
+            first = True
+            while not stop.is_set():
+                t = time.perf_counter()
+                v = during[c % 2]
+                futs = [(app, v, svc.submit(app, source=v))
+                        for app in ("sssp", "bfs")]
+                for app, v, f in futs:
+                    r = f.result(timeout=600)
+                    if last[0] is not None and t > last[0]:
+                        answers.append((app, v, r))
+                if last[0] is not None and t > last[0]:
+                    rounds_after[c] += 1
+                if first:
+                    first = False
+                    started.wait(timeout=600)
+                time.sleep(0.01)
+        except BaseException as exc:  # noqa: BLE001 — checked below
+            errors.append(exc)
+
+    reports = []
+    with s.service(max_batch=BATCH_K) as svc:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        started.wait(timeout=600)  # every client has had one answer
+        for i in range(3):
+            ins = _new_edges(np, s, rng, 1024, targets)
+            reports.append(svc.apply_mutations(inserts=ins))
+        last[0] = time.perf_counter()
+        # every client completes rounds begun at the final epoch
+        deadline = time.perf_counter() + 600
+        while min(rounds_after) < 2 and not errors \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        # queries nobody asked before: coalesced sweeps at the final epoch
+        futs = [(app, v, svc.submit(app, source=v))
+                for v in after for app in ("sssp", "bfs")]
+        answers += [(app, v, f.result(timeout=600)) for app, v, f in futs]
+        wall = time.perf_counter() - t0
+        snap = svc.stats.snapshot()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"service clients failed: {errors}")
+    check(snap["failed"] == 0, f"service: {snap['failed']} requests failed")
+    epoch = s.store.epoch()
+    check([r.epoch for r in reports] == [epoch - 2, epoch - 1, epoch],
+          f"service commits reached epochs {[r.epoch for r in reports]}")
+    want = {}
+    for app, v, r in answers:
+        if (app, v) not in want:
+            want[app, v] = s.run(app, source=v).values
+        check(np.array_equal(r.values, want[app, v]),
+              f"service {app} source {v} after the last commit differs "
+              "from a cold solo run")
+    log(f"service: {snap['completed']} queries from 4 threads across 3 "
+        f"commits in {wall:.3f}s; memo_refreshed="
+        f"{[r.memo_refreshed for r in reports]} memo_dropped="
+        f"{[r.memo_dropped for r in reports]} memo_hits={snap['memo_hits']} "
+        f"batch_occupancy={snap['batch_occupancy']}; {len(answers)} answers "
+        f"after the last commit equal {len(want)} cold solo runs")
+
+
+def mid_run_commit(s, rng, targets, error) -> int:
+    """(f) A commit while a pagerank run streams at prefetch depth 2 must
+    raise ``error``; the next run finishes at the new epoch.  Returns the
+    launches of the torn sweep (no IterationStats counts them): one a shard
+    it folded before it reached the committed one."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+
+    cfg = s.config.replace(prefetch_depth=2)
+    gen = s.iter_run("pagerank", max_iters=3, config=cfg)
+    next(gen)
+    edge = _new_edges(np, s, rng, 1, targets)
+    dirty = int(np.searchsorted(s.store.intervals, edge[1][0],
+                                side="right") - 1)
+    s.store.apply(inserts=edge)
+    before = cuda.launches["ell_spmv_fused"]
+    try:
+        for _ in gen:
+            pass
+    except error as exc:
+        log(f"mutable: mid-run commit raised {type(exc).__name__}: {exc}")
+    else:
+        raise Failed("a commit during a prefetching run did not raise")
+    torn = cuda.launches["ell_spmv_fused"] - before
+    check(torn == dirty, f"the torn sweep launched B1 {torn} times, "
+                         f"expected one a shard before shard {dirty}")
+    r = s.run("pagerank", max_iters=2, config=cfg)
+    check(r.epoch == s.store.epoch() and np.isfinite(r.values).all(),
+          f"the run after a mid-run commit pinned epoch {r.epoch}, not "
+          f"{s.store.epoch()}")
+    log(f"mutable: the next pagerank run finished at epoch {r.epoch}")
+    return torn
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1329,14 +1702,21 @@ def main() -> int:
             layouts["mesh"], n, tiling, solo, batch)
         log(f"multi: all comparisons passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        storage_launches = phase_storage(torch, str(store.path), solo,
+                                         batch[0])
+        log(f"storage: all comparisons passed in "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
-    # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4)
+    # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4), and the
+    # storage and mutation phase's (K = 1 and the service's batches)
     for name, rec in records.items():
         rec["launches"] = (batch_launches if name.endswith("_batch")
-                           else launches)[name]
+                           else launches)[name] + storage_launches[name]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -15,7 +15,13 @@ from repro_torch.core.apps import (VertexProgram, available_apps,  # noqa: F401
                                    get_app, register_app)
 from repro_torch.core.engine import (EngineConfig, IterationStats,  # noqa: F401
                                      RunResult, VSWEngine)
+from repro_torch.graph.compact import CompactionReport, compact  # noqa: F401
+from repro_torch.graph.delta import DeltaBudgetError, DeltaGraphStore  # noqa: F401
 from repro_torch.graph.generate import materialize, rmat_edges  # noqa: F401
+from repro_torch.graph.memory import MemoryGraphStore  # noqa: F401
+from repro_torch.graph.packed import PackedGraphStore, pack_graph  # noqa: F401
 from repro_torch.graph.preprocess import preprocess_graph  # noqa: F401
+from repro_torch.graph.source import (ConcurrentMutationError,  # noqa: F401
+                                      MissingGraphError)
 from repro_torch.graph.storage import GraphStore, write_edge_list  # noqa: F401
 from repro_torch.session import GraphSession  # noqa: F401

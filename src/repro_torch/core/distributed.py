@@ -144,6 +144,13 @@ class ShardedVSWEngine(VSWEngine):
     ``device`` is a device list of ``config.num_devices`` lanes or a spec
     ``make_data_devices`` expands (default ``"cuda"``: one GPU a lane).
     Values live on the first lane's device.
+
+    Under a mutable store the base class's ``_sync_graph_state`` refreshes
+    the graph state (the lanes hold only pipelines and streams; the
+    replicated arrays are copied to them every sweep).  Shard owners are
+    fixed at construction from the nnz of that moment, as the reference's
+    are: an engine built after a commit assigns anew and, when its owners
+    differ from the session's partitioned cache, takes a private one.
     """
 
     def __init__(self, store, program, config=None, *, device="cuda",

@@ -33,6 +33,7 @@ restarts from the latest snapshot — written by either package.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -49,6 +50,7 @@ from repro_torch.core.apps import BatchedVertexProgram, VertexProgram
 from repro_torch.core.cache import CompressedShardCache
 from repro_torch.core.pipeline import ShardPipeline
 from repro_torch.core.shards import ELLShard
+from repro_torch.graph.memory import _materialized
 from repro_torch.graph.source import ConcurrentMutationError, ShardSource
 from repro_torch.kernels.spmv.ops import (USE_KERNEL_CHOICES, ell_spmv,
                                           ell_spmv_batch)
@@ -77,6 +79,32 @@ def pad_to_device(arr: np.ndarray, n_pad: int,
     return torch.from_numpy(padded).to(device)
 
 
+def _materialize(arr: np.ndarray) -> np.ndarray:
+    """Read-only arrays are views into the packed backend's mmap: copy them
+    here, so the page-in happens on the thread that stages (the prefetch
+    thread at depth > 0) and no tensor aliases the mapping past the store's
+    ``close()``.  Writable arrays pass through."""
+    return arr if arr.flags.writeable else np.array(arr)
+
+
+def _pinned(arr: np.ndarray) -> torch.Tensor:
+    """``arr`` copied once into pinned host memory.
+
+    A read-only array is a view into the packed backend's mmap.  Pinning an
+    ``np.array`` copy of it (the reference's ``_materialize``) costs a
+    second copy, the first into freshly faulted pages, and made packed runs
+    several times slower than npz ones on the card (PERF.md).  Here torch's
+    parallel copy reads the mapping directly, on the staging thread, through
+    a writable ndarray over the same bytes (``torch.from_numpy`` warns on
+    read-only arrays) that lives only for this copy; the caller holds
+    ``arr``, which keeps the mapping open until the copy is done."""
+    if not arr.flags.writeable:
+        arr = np.ascontiguousarray(arr)
+        raw = (ctypes.c_byte * arr.nbytes).from_address(arr.ctypes.data)
+        arr = np.ndarray(arr.shape, arr.dtype, buffer=raw)
+    return torch.from_numpy(arr).pin_memory()
+
+
 def stage_shard(shard: ELLShard, device: torch.device,
                 copy_stream: "torch.cuda.Stream | None" = None):
     """One shard's arrays on ``device``.
@@ -86,17 +114,18 @@ def stage_shard(shard: ELLShard, device: torch.device,
     ``copy_stream`` (the prefetch stream, depth > 0) or the current stream
     of ``device`` (depth 0); ``ready`` is an event recorded after the
     copies, which the sweep makes its compute stream wait on.  ``ready`` is
-    None on the CPU.
+    None on the CPU.  Read-only (mmap) arrays are copied, into owned memory
+    on the CPU (``_materialize``) and straight into pinned memory on CUDA
+    (``_pinned``), so no staged tensor aliases the mapping.
     """
-    arrays = [torch.from_numpy(a)
-              for a in (shard.cols, shard.vals, shard.row_map)]
+    arrays = (shard.cols, shard.vals, shard.row_map)
     qparams = (shard.val_scale, shard.val_zero)
     if device.type != "cuda":
-        return (*arrays, qparams, None)
+        return (*(torch.from_numpy(_materialize(a)) for a in arrays),
+                qparams, None)
     stream = copy_stream or torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
-        staged = [a.pin_memory().to(device, non_blocking=True)
-                  for a in arrays]
+        staged = [_pinned(a).to(device, non_blocking=True) for a in arrays]
         ready = torch.cuda.Event()
         ready.record(stream)
     return (*staged, qparams, ready)
@@ -405,8 +434,9 @@ class VSWEngine:
         self.selective_threshold = self.config.selective_threshold
         self.n = store.num_vertices
         # graph epoch the degree/bloom/meta arrays below were read at; runs
-        # pin it (no store of this package moves past it: mutable stores
-        # are ROADMAP A5b)
+        # pin it, and a mutable store moving past it makes the next run
+        # re-sync them (_sync_graph_state)
+        self._sync_lock = threading.Lock()
         if graph_epoch is not None:
             self._graph_epoch = int(graph_epoch)
         else:
@@ -423,10 +453,12 @@ class VSWEngine:
         self._out_deg_dev = (
             out_deg_dev if out_deg_dev is not None
             else pad_to_device(self.out_deg, self.n_pad, self.device))
+        # preloaded shards own their arrays: a packed store's mmap views
+        # would keep the mapping open for the engine's lifetime
         self._preloaded: dict[int, ELLShard] = {}
         if self.config.preload:
             for p in range(self.P):
-                self._preloaded[p] = self._fetch_shard(p)
+                self._preloaded[p] = _materialized(self._fetch_shard(p))
         # ALL shard consumption goes through the pipeline — depth 0 is the
         # synchronous path, depth >= 1 prefetches + stages on a worker thread
         # (the sharded engine builds one lane per device instead and leaves
@@ -512,6 +544,41 @@ class VSWEngine:
         if p in self._preloaded:
             return self._preloaded[p]
         return self._fetch_shard(p)
+
+    def _sync_graph_state(self) -> None:
+        """Refresh graph-derived engine state after a store mutation.
+
+        A no-op while the store's epoch matches the one the degree, Bloom
+        and shard-meta arrays were read at.  On an epoch change: re-read the
+        vertex info and the shards' nnz and rows, grow ``n_pad`` (never
+        shrink it) so every ``[start, start + R)`` slice of a merged shard
+        stays in bounds, rebuild the device out-degrees on this engine's
+        device, and re-read the Bloom filters (and preloaded shards) of the
+        shards whose own epoch moved.  The blooms list is the session's,
+        shared by every engine, so it is updated in place.
+        """
+        if _store_epoch(self.store) == self._graph_epoch:
+            return
+        with self._sync_lock:
+            cur = _store_epoch(self.store)
+            prev = self._graph_epoch
+            if cur == prev:
+                return
+            self.in_deg, self.out_deg = self.store.read_vertex_info()
+            shard_meta = self.store.properties["shards"]
+            self._shard_nnz = [int(m.get("nnz", 0)) for m in shard_meta]
+            self.max_rows = max((m["rows"] for m in shard_meta), default=8)
+            self.n_pad = max(self.n_pad, self.n + self.max_rows)
+            self._out_deg_dev = pad_to_device(self.out_deg, self.n_pad,
+                                              self.device)
+            shard_epoch = getattr(self.store, "shard_epoch", None)
+            for p in range(self.P):
+                if shard_epoch is None or shard_epoch(p) > prev:
+                    self.blooms[p] = self.store.read_bloom(p)
+                    if p in self._preloaded:
+                        self._preloaded[p] = _materialized(
+                            self._fetch_shard(p))
+            self._graph_epoch = cur
 
     def _stage(self, shard: ELLShard):
         """Host->device staging; runs on the prefetch thread when depth > 0
@@ -635,6 +702,7 @@ class VSWEngine:
         raises ``ConcurrentMutationError`` instead of mixing epochs into one
         result."""
         program = self._check_program(program)
+        self._sync_graph_state()
         run_epoch = self._graph_epoch
         shard_epoch_fn = getattr(self.store, "shard_epoch", None)
         epoch_check = None

@@ -4,10 +4,16 @@ GraphMP's data path only ever needs five things from storage — decoded
 shards, raw shard blobs, shard sizes, Bloom filters, and byte accounting —
 so that surface IS the protocol.  Everything above it (``CompressedShardCache``,
 ``ShardPipeline``, ``VSWEngine``, ``GraphSession``) is backend-agnostic;
-the backend below it in this package is
-``repro_torch.graph.storage.GraphStore``, the npz-per-shard directory (the
-reference package also ships packed and in-memory backends; any object with
-this surface plugs in the same way).
+backends below it ship in three flavours:
+
+  * ``repro_torch.graph.storage.GraphStore`` — the npz-per-shard directory
+  * ``repro_torch.graph.packed.PackedGraphStore`` — one mmap'd file,
+    zero-copy views
+  * ``repro_torch.graph.memory.MemoryGraphStore`` — RAM-resident
+    (tests/benchmarks)
+
+``repro_torch.graph.delta.DeltaGraphStore`` wraps any of them in a mutable
+overlay.
 
 Disk-byte accounting (the paper's Table-3 metric) is **canonical**: every
 backend charges a shard read at the shard's canonical npz-blob size, so the

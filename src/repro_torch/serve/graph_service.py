@@ -30,9 +30,10 @@ K-column sweeps:
 * A small memo layer keyed on (app, params, graph token — the store's
   epoch for mutable graphs, mtime for frozen ones) serves repeated hot
   queries (popular PPR seeds) without any sweep at all.
-  ``apply_mutations`` pauses and drains, then reaches
-  ``session.apply_mutations``, which raises until the delta store is ported
-  (ROADMAP A5b).
+* ``apply_mutations`` pauses dispatch, drains in-flight sweeps, commits
+  through ``session.apply_mutations`` (the session must be
+  ``mutable=True``) and refreshes memoized incremental results through
+  ``session.run_incremental``.
 
 Batch padding: groups are padded up to the next power of two (duplicating
 the last source) so the [n, K] engines number O(log max_batch) distinct K
@@ -665,9 +666,8 @@ class GraphService:
 
         Pauses dispatch, drains every in-flight sweep (by taking all
         ``max_inflight`` permits), commits through
-        ``session.apply_mutations`` (which raises ``NotImplementedError``
-        until the delta store is ported, ROADMAP A5b), re-keys the memo
-        under the new graph token, then resumes.  Pending
+        ``session.apply_mutations`` (the session must be ``mutable=True``),
+        re-keys the memo under the new graph token, then resumes.  Pending
         requests admitted before the call simply execute after it, at the
         new epoch; in-flight sweeps finish at the old epoch before the
         commit lands, so no sweep ever mixes epochs.

@@ -34,32 +34,47 @@ a list such as ``["cpu"] * D`` or ``["cuda:0"] * D`` may repeat a device):
 
         GraphSession(path, num_devices=2, device=["cuda:0", "cuda:0"])
 
-The store is a directory written by ``preprocess_graph`` (of this package
-or the reference ``repro`` package: the format is shared) or any
-constructed ``ShardSource``.
+The store is a directory written by ``preprocess_graph``, a packed
+``.gmpk`` file (of this package or the reference ``repro`` package: both
+formats are shared) or any constructed ``ShardSource``.
+``backend="npz" | "packed" | "memory"`` picks the storage layer for a path
+(packed: one mmap'd file, zero-copy shard views; a directory is packed into
+``packed.gmpk`` on first use).  ``mutable=True`` wraps the store in a
+``DeltaGraphStore``: ``apply_mutations`` commits edge edits, and
+``run_incremental`` continues a previous fixpoint across them:
+
+        with GraphSession(path, backend="packed", mutable=True) as s:
+            d0 = s.run("sssp", source=0)
+            s.apply_mutations(inserts=[(3, 7, 0.5)])
+            d1 = s.run_incremental("sssp", source=0, prev=d0)
 """
 from __future__ import annotations
 
 import os
 import threading
 from collections import OrderedDict
+from pathlib import Path
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.core.apps import (BatchedVertexProgram, VertexProgram,
-                                   get_app)
+                                   get_app, is_incremental)
 from repro_torch.core.cache import CompressedShardCache, PartitionedShardCache
 from repro_torch.core.distributed import ShardedVSWEngine, assign_shards
 from repro_torch.core.engine import (BatchRunResult, EngineConfig,
                                      IterationStats, RunResult, VSWEngine,
                                      _store_epoch, pad_to_device)
 from repro_torch.dist.context import make_data_devices
-from repro_torch.graph.source import ShardSource
+from repro_torch.graph.delta import DeltaGraphStore
+from repro_torch.graph.memory import MemoryGraphStore
+from repro_torch.graph.packed import (DEFAULT_PACKED_NAME, PackedGraphStore,
+                                      is_packed_file, pack_graph)
+from repro_torch.graph.source import ShardSource, path_mtime_ns
 from repro_torch.graph.storage import GraphStore
 
-BACKENDS = ("npz",)
+BACKENDS = ("npz", "packed", "memory")
 
 # run_batch accepts the single-source names and maps them onto the batched
 # program factories (which are also directly addressable by name).
@@ -95,15 +110,31 @@ def _resolve_source(store, backend: str | None):
                 f"storage object ({type(store).__name__}) — pass its path, "
                 "or drop backend=")
         return store
-    if backend in ("packed", "memory"):
-        raise _not_ported(f"backend={backend!r}", "A5b")
-    if backend not in (None, "npz"):
-        raise ValueError(
-            f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    store = GraphStore(store)
-    store.properties  # validate up front: clear MissingGraphError, not a
-    #                   raw ENOENT from vertex_info.npz deeper in __init__
-    return store
+    path = Path(store)
+    if backend is None:
+        backend = "packed" if is_packed_file(path) else "npz"
+    if backend == "npz":
+        store = GraphStore(path)
+        store.properties  # validate up front: clear MissingGraphError, not a
+        #                   raw ENOENT from vertex_info.npz deeper in __init__
+        return store
+    if backend == "packed":
+        if path.is_dir():
+            # auto-pack (and re-pack after a fresh preprocess): property.json
+            # is written last by preprocess_graph, so its mtime dates the store
+            packed = path / DEFAULT_PACKED_NAME
+            packed_ns = path_mtime_ns(packed)  # -1 when missing
+            if packed_ns < 0 or packed_ns <= path_mtime_ns(
+                    path / "property.json"):
+                pack_graph(GraphStore(path), packed)
+            path = packed
+        return PackedGraphStore(path)
+    if backend == "memory":
+        inner = (PackedGraphStore(path) if is_packed_file(path)
+                 else GraphStore(path))
+        return MemoryGraphStore.from_source(inner)
+    raise ValueError(
+        f"unknown backend {backend!r}; expected one of {BACKENDS}")
 
 
 class GraphSession:
@@ -112,8 +143,8 @@ class GraphSession:
     Parameters
     ----------
     store:
-        A path to a preprocessed graph (npz directory) or any constructed
-        ``ShardSource``.
+        A path to a preprocessed graph (npz directory or packed ``.gmpk``
+        file) or any constructed ``ShardSource``.
     config:
         ``EngineConfig`` shared by every engine the session builds.  When
         omitted it comes from ``EngineConfig.from_env()``; extra keyword
@@ -122,9 +153,17 @@ class GraphSession:
     max_engines:
         LRU bound on cached engines.
     backend:
-        ``"npz"`` (the default).  ``"packed"``/``"memory"`` are ROADMAP A5b.
+        Storage backend for a path: ``"npz"`` (directory of per-shard npz
+        files), ``"packed"`` (one mmap'd file with zero-copy shard views; a
+        directory path is packed to ``packed.gmpk`` on first use and again
+        when its ``property.json`` is newer), or ``"memory"`` (the whole
+        graph in RAM).  Default: ``"packed"`` for a packed file, else
+        ``"npz"``.
     mutable:
-        Only ``False``: the delta store is ROADMAP A5b.
+        Wrap the store in a ``DeltaGraphStore`` so ``apply_mutations`` can
+        commit edge inserts/deletes/upserts; ``run_incremental`` continues
+        a previous result across them, and ``repro_torch.graph.compact``
+        folds the deltas back into the base storage.
     device:
         Where values live and the SpMV runs: ``"cuda"`` (default; raises
         without a GPU) or ``"cpu"``.  With ``num_devices > 1``: the device
@@ -136,9 +175,10 @@ class GraphSession:
                  config: EngineConfig | None = None, max_engines: int = 16,
                  *, backend: str | None = None, mutable: bool = False,
                  device: torch.device | str | list = "cuda", **overrides):
-        if mutable:
-            raise _not_ported("mutable=True (the delta store)", "A5b")
+        self._owns_store = isinstance(store, (str, os.PathLike))
         store = _resolve_source(store, backend)
+        if mutable and not isinstance(store, DeltaGraphStore):
+            store = DeltaGraphStore(store)
         if config is None:
             config = EngineConfig.from_env(**overrides)
         elif overrides:
@@ -167,6 +207,8 @@ class GraphSession:
                 budget_bytes=config.cache_budget_bytes,
                 hot_fraction=config.cache_hot_fraction,
                 promote_after=config.cache_promote_after)
+        # graph epoch the shared arrays below were read at; engines inherit
+        # it and re-sync per run when a mutable store moves past it
         self._graph_epoch = _store_epoch(store)
         # shared vertex metadata: read from disk exactly once per session
         self.in_deg, self.out_deg = store.read_vertex_info()
@@ -405,13 +447,106 @@ class GraphSession:
         from repro_torch.serve.graph_service import GraphService
         return GraphService(self, config, **overrides)
 
+    # -- mutation / incremental recompute -------------------------------
+    def apply_mutations(self, inserts=None, deletes=None,
+                        updates=None) -> int:
+        """Commit one batch of edge edits to a ``mutable=True`` session.
+
+        ``inserts``/``updates`` (synonyms: both upsert) take ``(src, dst)``
+        or ``(src, dst, weight)`` arrays or triple iterables; ``deletes``
+        takes ``(src, dst)`` pairs.  Returns the new graph epoch.  The
+        session's degree arrays, its device out-degrees and the Bloom
+        filters of the shards that changed are refreshed; the shared cache
+        drops stale entries on next access.  Runs in flight pinned the
+        previous epoch and raise ``ConcurrentMutationError`` rather than mix
+        epochs (``GraphService.apply_mutations`` drains them first).
+        """
+        apply = getattr(self.store, "apply", None)
+        if apply is None:
+            raise TypeError(
+                "this session's store is frozen; open it with "
+                "GraphSession(path, mutable=True) (or wrap the store in a "
+                "DeltaGraphStore) before applying edge mutations")
+        epoch = apply(inserts=inserts, deletes=deletes, updates=updates)
+        self._refresh_graph_state()
+        return epoch
+
+    def _refresh_graph_state(self) -> None:
+        """Re-read graph-derived session state after the store's epoch
+        moved, as ``VSWEngine._sync_graph_state`` does for an engine, so
+        engines built after a commit start consistent.  ``n_pad`` only
+        grows; the blooms list is shared by reference with every live
+        engine and is updated in place."""
+        prev = self._graph_epoch
+        cur = _store_epoch(self.store)
+        if cur == prev:
+            return
+        self.in_deg, self.out_deg = self.store.read_vertex_info()
+        shard_meta = self.store.properties["shards"]
+        self.max_rows = max((m["rows"] for m in shard_meta), default=8)
+        self.n_pad = max(self.n_pad, self.n + self.max_rows)
+        self.out_deg_dev = pad_to_device(self.out_deg, self.n_pad,
+                                         self.device)
+        shard_epoch = getattr(self.store, "shard_epoch", None)
+        for p in range(self.store.num_shards):
+            if shard_epoch is None or shard_epoch(p) > prev:
+                self.blooms[p] = self.store.read_bloom(p)
+        self._graph_epoch = cur
+
+    def run_incremental(self, app: str | VertexProgram, *,
+                        prev: RunResult, max_iters: int = 200,
+                        config: EngineConfig | None = None,
+                        **app_kwargs) -> RunResult:
+        """Continue a previous run's fixpoint across graph mutations.
+
+        ``prev`` must be the ``RunResult`` of the same application and
+        source over this session's store.  When every commit since
+        ``prev.epoch`` was monotone (insert-only / weight-non-increasing)
+        and the application is registered ``incremental=True`` (SSSP, BFS,
+        CC: min-propagations whose old fixpoint stays a valid upper bound),
+        the run starts from ``prev``'s values with a frontier of just the
+        source vertices the commits touched.
+
+        Falls back to a cold run whenever that would be unsound: a
+        non-incremental app, a delete or weight increase since
+        ``prev.epoch``, an unconverged ``prev``, or an epoch log truncated
+        past it.  If the store has not moved since ``prev``, returns the
+        previous values (0 iterations).
+        """
+        program, prog_key = self._resolve(app, app_kwargs)
+        if isinstance(program, BatchedVertexProgram):
+            raise TypeError(
+                "run_incremental takes single-frontier applications; "
+                "run_batch results cannot seed it")
+        tag = VSWEngine._tag_for(program)
+        if prev.tag is not None and prev.tag != tag:
+            raise ValueError(
+                f"prev result was produced by {prev.tag!r}, not {tag!r}; "
+                "incremental recompute must continue the same program and "
+                "source")
+        cur = _store_epoch(self.store)
+        if cur == prev.epoch and prev.converged:
+            # nothing changed since prev: its fixpoint is still the answer
+            return RunResult(values=np.array(prev.values), iterations=0,
+                             history=[], converged=True, epoch=cur, tag=tag)
+        name = app if isinstance(app, str) else program.name
+        monotone_since = getattr(self.store, "monotone_since", None)
+        seeds = None
+        if (prev.converged and is_incremental(name)
+                and monotone_since is not None
+                and monotone_since(prev.epoch)):
+            # None when the epoch log no longer reaches back to prev.epoch
+            seeds = self.store.affected_sources_since(prev.epoch)
+        eng = self._engine_for(program, prog_key, config)
+        run_program = program if prog_key[0] == "sig" else None
+        if seeds is None:
+            return eng.run(max_iters=max_iters, program=run_program)
+        active = np.zeros(self.n, dtype=bool)
+        active[seeds] = True
+        return eng.run(max_iters=max_iters, program=run_program,
+                       init_state=(np.array(prev.values), active))
+
     # -- surfaces of the reference session not ported yet ---------------
-    def run_incremental(self, *args, **kwargs):
-        raise _not_ported("run_incremental", "A5b")
-
-    def apply_mutations(self, *args, **kwargs):
-        raise _not_ported("apply_mutations", "A5b")
-
     def attach_hub(self, *args, **kwargs):
         raise _not_ported("attach_hub (telemetry)", "A8")
 
@@ -438,9 +573,12 @@ class GraphSession:
         return self.cache.cached_bytes
 
     def close(self) -> None:
-        """Drop engine and cache references."""
+        """Drop engine and cache references, and close a store the session
+        opened from a path (a packed store's mmap)."""
         self._engines.clear()
         self.cache.clear()
+        if self._owns_store:
+            getattr(self.store, "close", lambda: None)()
 
     def __enter__(self) -> "GraphSession":
         return self

@@ -410,3 +410,150 @@ def test_distributed_vsw_on_card(dev):
                                  [torch.device("cuda", 0)] * 2).run(50)
         assert on_card[1] == on_cpu[1]
         np.testing.assert_array_equal(on_card[0], on_cpu[0])
+
+
+# ---------------------------------------------------------------------------
+# the storage backends and the mutable graph on the card
+# ---------------------------------------------------------------------------
+def _new_edges(store, rng, count, exclude=()):
+    """``count`` unit-weight edges absent from ``store`` (and ``exclude``)."""
+    have = set(exclude)
+    for p in range(store.num_shards):
+        shard = store.read_shard(p)
+        r, c = np.nonzero(shard.cols >= 0)
+        have.update(zip(shard.cols[r, c].tolist(),
+                        (shard.row_map[r] + shard.start_vertex).tolist()))
+    out = []
+    while len(out) < count:
+        s, d = (int(v) for v in rng.integers(0, store.num_vertices, 2))
+        if s != d and (s, d) not in have:
+            have.add((s, d))
+            out.append((s, d, 1.0))
+    return out
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_mutable_session_on_card_matches_cpu(dev, store_path, depth):
+    """Cold runs, an insert commit, run_incremental through B1 (one launch
+    a processed shard) and a delete that forces a cold fallback: the card
+    gives the CPU's values and iterations at every step."""
+    apps = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("cc", {}))
+    sessions = [GraphSession(store_path, device=d, mutable=True,
+                             prefetch_depth=depth) for d in ("cpu", dev)]
+    with sessions[0] as cpu, sessions[1] as card:
+        prev = {a: (cpu.run(a, **kw), card.run(a, **kw)) for a, kw in apps}
+        inserts = _new_edges(cpu.store, np.random.default_rng(5), 256)
+        assert cpu.apply_mutations(inserts=inserts) == \
+            card.apply_mutations(inserts=inserts) == 1
+        for app, kw in apps:
+            want = cpu.run_incremental(app, prev=prev[app][0], **kw)
+            cuda.reset_launches()
+            got = card.run_incremental(app, prev=prev[app][1], **kw)
+            assert cuda.launches["ell_spmv_fused"] == \
+                sum(h.shards_processed for h in got.history)
+            assert got.iterations == want.iterations
+            np.testing.assert_array_equal(got.values, want.values)
+            np.testing.assert_array_equal(got.values,
+                                          card.run(app, **kw).values)
+            prev[app] = (want, got)
+        deletes = [(s, d) for s, d, _ in inserts[:8]]
+        cpu.apply_mutations(deletes=deletes)
+        card.apply_mutations(deletes=deletes)
+        for app, kw in apps:
+            got = card.run_incremental(app, prev=prev[app][1], **kw)
+            cold = card.run(app, **kw)
+            assert got.iterations == cold.iterations
+            np.testing.assert_array_equal(got.values, cold.values)
+            np.testing.assert_array_equal(got.values,
+                                          cpu.run(app, **kw).values)
+
+
+def test_packed_session_on_card_equals_npz(dev, store_path, tmp_path):
+    import shutil
+    shutil.copytree(store_path, tmp_path / "store")
+    path = str(tmp_path / "store")
+    with GraphSession(path, device=dev) as npz, \
+            GraphSession(path, device=dev, backend="packed",
+                         prefetch_depth=2) as packed, \
+            GraphSession(path, device=dev, backend="memory") as memory:
+        for app, kw in (("sssp", {}), ("bfs", {}), ("cc", {}),
+                        ("pagerank", dict(max_iters=10))):
+            want = npz.run(app, **kw)
+            for s in (packed, memory):
+                got = s.run(app, **kw)
+                assert got.iterations == want.iterations
+                np.testing.assert_array_equal(got.values, want.values)
+    assert packed.store._mm.closed
+
+
+def test_commit_growing_n_pad_on_card(dev, tmp_path):
+    """Every vertex gains an edge into 40 destinations of one shard: their
+    rows wrap over more ELL rows than any shard had, ``n_pad`` grows, and
+    the card still gives the CPU's answer with its tensors on ``cuda``."""
+    rng = np.random.default_rng(0)
+    n = 384
+    src, dst = rng.integers(0, n, 2000), rng.integers(0, n, 2000)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    write_edge_list(tmp_path / "el", [(src, dst)], weighted=True)
+    np.save(tmp_path / "el" / "weights_00000.npy",
+            rng.uniform(0.5, 2.0, src.size).astype(np.float32))
+    preprocess_graph(str(tmp_path / "el"), str(tmp_path / "store"),
+                     threshold_edge_num=512, ell_max_width=64,
+                     num_vertices=n)
+    path = str(tmp_path / "store")
+    with GraphSession(path, device="cpu", mutable=True) as cpu, \
+            GraphSession(path, device=dev, mutable=True) as card:
+        prev = card.run("sssp", source=0)
+        cpu_prev = cpu.run("sssp", source=0)
+        n_pad0 = card.n_pad
+        rows = [m["rows"] for m in card.store.properties["shards"]]
+        lo = int(card.store.intervals[int(np.argmax(rows))])
+        have = set(zip(src.tolist(), dst.tolist()))
+        new = [(u, t, 0.5) for t in range(lo, lo + 40) for u in range(n)
+               if u != t and (u, t) not in have]
+        cpu.apply_mutations(inserts=new)
+        card.apply_mutations(inserts=new)
+        assert card.n_pad > n_pad0 and card.n_pad == cpu.n_pad
+        assert card.out_deg_dev.device.type == "cuda"
+        assert card.out_deg_dev.shape[0] == card.n_pad
+        inc = card.run_incremental("sssp", source=0, prev=prev)
+        np.testing.assert_array_equal(
+            inc.values, cpu.run_incremental("sssp", source=0,
+                                            prev=cpu_prev).values)
+        eng = card.engine("sssp", source=0)
+        assert eng.n_pad == card.n_pad and \
+            eng._out_deg_dev.device.type == "cuda"
+        for app in ("bfs", "cc"):
+            np.testing.assert_array_equal(card.run(app).values,
+                                          cpu.run(app).values)
+
+
+def test_staging_packed_shards_on_card(dev, store_path, tmp_path):
+    """Read-only mmap views stage in one copy into pinned memory: the same
+    device arrays as the npz shard's, no warning, and nothing left that
+    pins the mapping."""
+    import shutil
+    import warnings
+
+    from repro_torch.core.engine import stage_shard
+    from repro_torch.graph.packed import PackedGraphStore, pack_graph
+    from repro_torch.graph.storage import GraphStore
+
+    shutil.copytree(store_path, tmp_path / "store")
+    npz = GraphStore(tmp_path / "store")
+    packed = PackedGraphStore(pack_graph(npz))
+    for p in range(npz.num_shards):
+        view = packed.read_shard(p)
+        assert not view.cols.flags.writeable
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = stage_shard(view, dev)
+        del view
+        want = stage_shard(npz.read_shard(p), dev)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert a.device.type == "cuda"
+            assert torch.equal(a, b)
+    packed.close()
+    assert packed._mm.closed

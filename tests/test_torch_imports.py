@@ -1,5 +1,6 @@
 """Boundaries of the port: it imports neither jax nor the reference package,
-it runs on the CPU only when asked, and what it has not ported raises."""
+it runs on the CPU only when asked, what it has not ported raises, and the
+surfaces ported since work."""
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.kernels.spmv.ops, repro_torch.kernels.spmv.cuda\n"
         "import repro_torch.serve.graph_service, repro_torch.obs.metrics\n"
         "import repro_torch.core.distributed, repro_torch.dist.context\n"
+        "import repro_torch.graph.pack, repro_torch.graph.compact\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -63,8 +65,6 @@ def _service_attach_hub(s):
 
 @pytest.mark.parametrize("call,item", [
     (lambda s: s.run_batch("lp", sources=[0]), "A7"),
-    (lambda s: s.run_incremental("sssp", prev=None), "A5b"),
-    (lambda s: s.apply_mutations(inserts=[(0, 1)]), "A5b"),
     (_service_attach_hub, "A8"),
     (lambda s: s.attach_hub(None), "A8"),
 ])
@@ -74,9 +74,30 @@ def test_unported_session_surfaces_raise(graph_store, call, item):
             call(s)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(backend="packed"), "A5b"),
-                                     (dict(backend="memory"), "A5b"),
-                                     (dict(mutable=True), "A5b")])
-def test_unported_backends_raise(graph_store, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        GraphSession(str(graph_store.path), device="cpu", **kw)
+def _mutate_and_continue(s):
+    prev = s.run("sssp", source=0, max_iters=50)
+    assert s.apply_mutations(inserts=[(0, 1)]) == 1
+    inc = s.run_incremental("sssp", source=0, prev=prev, max_iters=50)
+    assert inc.epoch == 1 and inc.converged
+    assert inc.iterations <= prev.iterations
+
+
+@pytest.mark.parametrize("kw,check", [
+    (dict(backend="packed"),
+     lambda s: type(s.store).__name__ == "PackedGraphStore"),
+    (dict(backend="memory"),
+     lambda s: type(s.store).__name__ == "MemoryGraphStore"),
+    (dict(mutable=True),
+     lambda s: type(s.store).__name__ == "DeltaGraphStore"),
+    (dict(mutable=True), lambda s: s.apply_mutations(inserts=[(0, 1)]) == 1),
+    (dict(mutable=True), _mutate_and_continue),
+])
+def test_ported_backends_and_mutation_work(graph_store, tmp_path, kw, check):
+    """The packed and memory backends open, a mutable session commits at
+    epoch 1 and ``run_incremental`` continues a run (each held against the
+    reference in tests/test_torch_backends.py and test_torch_delta.py)."""
+    import shutil
+    store = tmp_path / "store"  # the packed file lands beside the store
+    shutil.copytree(graph_store.path, store)
+    with GraphSession(str(store), device="cpu", **kw) as s:
+        assert check(s) in (True, None)

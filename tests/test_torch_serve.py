@@ -261,10 +261,27 @@ def test_unported_service_surfaces_raise(graph_store):
         with sess.service() as svc:
             with pytest.raises(NotImplementedError, match="A8"):
                 svc.attach_hub(None)
-            with pytest.raises(NotImplementedError, match="A5b"):
+            # a frozen session refuses a commit, as the reference's does
+            with pytest.raises(TypeError, match="mutable=True"):
                 svc.apply_mutations(inserts=[(0, 1)])
             # the barrier lifted: the service still serves
             svc.submit("bfs", source=1, max_iters=3).result(timeout=60)
+
+
+def test_service_apply_mutations_commits(graph_store, tmp_path):
+    """Over a mutable session the service commits, refreshes its memoized
+    sssp entry through run_incremental and serves the new graph."""
+    import shutil
+    shutil.copytree(graph_store.path, tmp_path / "store")
+    with GraphSession(str(tmp_path / "store"), device="cpu",
+                      mutable=True) as sess, sess.service() as svc:
+        svc.submit("sssp", source=1, max_iters=100).result(timeout=60)
+        report = svc.apply_mutations(inserts=[(1, 2, 1.0)])
+        assert (report.epoch, report.memo_refreshed, report.memo_dropped) \
+            == (1, 1, 0)
+        got = svc.submit("sssp", source=1, max_iters=100).result(timeout=60)
+        np.testing.assert_array_equal(
+            got.values, sess.run("sssp", source=1, max_iters=100).values)
 
 
 def test_service_stats_and_percentile():
