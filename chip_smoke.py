@@ -68,8 +68,28 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    1,024 edges, every answer submitted after the last commit equal to a
    cold solo run; (f) a commit in the middle of a pagerank run at prefetch
    depth 2 raises ``ConcurrentMutationError`` and the next run finishes at
-   the new epoch.  The phase's launches must equal the shards its runs
-   processed (B2: the gather + fold sssp).
+   the new epoch; (g) a weighted int8 store of RMAT scale ``SMALL_SCALE``
+   (18), mutable: 4,096 weighted inserts, then ``run_incremental("sssp")``
+   through B1 and through the plain version, bitwise equal to each other
+   and to cold runs.  ``run_incremental("label_propagation")`` joins (b).
+   The phase's launches must equal the shards its runs processed (B2: the
+   gather + fold sssp);
+9. zoo and baselines — on a warm session: (a) label_propagation and kcore
+   (k = 2) through B1, B2 and the plain version, values and
+   ``IterationStats`` bitwise equal; (b) ``run_batch`` of lp over phase 5's
+   sources and of kcore over k = 1..16 (K = 16) through B1, B3 and plain,
+   each column equal to its solo run; (c) a ``triangles`` slab [0, 128) in
+   two chunks of 64 (K = 64, three sweeps each) through B1, B3 and plain,
+   one engine a config; (d) 16 random walks (length 8, seed 0) on the
+   card's session and a ``device="cpu"`` session, both cold: the same
+   walks and cache trace, no launch; a solo walk equals its column; (e)
+   lp, kcore, triangle_count and random_walk queries from 4 client threads
+   to the service, each answer equal to its solo run; (f) ``ESGEngine`` and
+   ``PSWEngine`` run bfs and cc at RMAT scale 18 on the card and on the
+   CPU, equal in values and bytes read and written, beside a session's
+   seconds and disk bytes per iteration (cache mode 0).  Every zoo run is
+   capped at ``ZOO_ITERS``.  The phase's launches must equal the shards
+   its runs processed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -78,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import shutil
 import subprocess
@@ -116,6 +137,8 @@ REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
             "ell_fold_batch": "src/repro/kernels/spmv/spmv.py:221",
             "ell_gather_fold": "src/repro/kernels/spmv/spmv.py:276"}
 LANES = 2                      # phase 7: lanes, and the D = S of the tiling
+SMALL_SCALE = 18               # phase 8's int8 store, phase 9's baselines
+ZOO_ITERS = 30                 # phase 9: the cap on every zoo run
 TILE_WIDTH = 128               # ELL width of the 2-D tiles
 
 
@@ -1305,7 +1328,7 @@ def phase_storage(torch, store_path: str, solo, sources) -> dict:
     # shards processed by runs through each kernel, from IterationStats:
     # "fold" while the gather + fold run is on, "fused" otherwise (K = 1
     # and the service's batches, which launch either fused kernel)
-    shards = {"fused": 0, "fold": 0}
+    shards = {"fused": 0, "fold": 0, "none": 0}
     kernel = ["fused"]
     lock = threading.Lock()  # the service's runners sweep concurrently
 
@@ -1319,6 +1342,7 @@ def phase_storage(torch, store_path: str, solo, sources) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     storage_backends(store_path, packed, solo, observe)
     mutable_graph(packed, sources, observe, shards, kernel)
+    quantized_mutation(Path(store_path).parent, observe, kernel)
     launches = dict(cuda.launches)
     fused = launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
     check(fused == shards["fused"] > 0
@@ -1439,11 +1463,14 @@ def mutable_graph(packed, sources, observe, shards, kernel) -> None:
     from repro_torch.session import GraphSession
 
     apps = [("sssp", dict(source=0)), ("bfs", dict(source=0)), ("cc", {})]
+    # label propagation (phase 9's, run here on the mutated graph): labels
+    # only grow, so its fixpoint continues across the inserts too
+    incremental = apps + [("label_propagation", {})]
     s = GraphSession(str(packed), mutable=True, cache_mode=1,
                      cache_budget_bytes=CACHE_BUDGET)
     try:
         s.iteration_observers.append(observe)
-        prev = {app: s.run(app, **kw) for app, kw in apps}
+        prev = {app: s.run(app, **kw) for app, kw in incremental}
         # (b) a burst of 4,096 new unit-weight links into 4 shards
         rng = np.random.default_rng(2)
         targets = sorted(int(p) for p in rng.choice(s.store.num_shards, 4,
@@ -1458,7 +1485,7 @@ def mutable_graph(packed, sources, observe, shards, kernel) -> None:
         before = dict(cuda.launches)
         processed = shards["fused"]
         cold = {}
-        for app, kw in apps:
+        for app, kw in incremental:
             inc = s.run_incremental(app, prev=prev[app], **kw)
             cold[app] = s.run(app, **kw)
             log(_run_line(f"mutable: incremental {app:4s}", inc,
@@ -1645,6 +1672,428 @@ def mid_run_commit(s, rng, targets, error) -> int:
     return torn
 
 
+@functools.cache
+def small_rmat():
+    """-> (src, dst, n): the RMAT edges of phase 8's int8 store and phase
+    9's baselines, at SMALL_SCALE (a, b, c = .57, .19, .19, seed 0)."""
+    from repro_torch.graph.generate import materialize, rmat_edges
+
+    src, dst = materialize(rmat_edges(SMALL_SCALE, 16, a=0.57, b=0.19,
+                                      c=0.19, seed=0))
+    return src, dst, int(max(src.max(), dst.max())) + 1
+
+
+def small_store(tmp: Path, name: str, weighted: bool = False,
+                **preprocess) -> str:
+    """``small_rmat``'s edges (with random weights in [1, 10) when
+    ``weighted``) preprocessed into ``tmp / name``."""
+    from repro_torch.graph.preprocess import preprocess_graph
+    from repro_torch.graph.storage import write_edge_list
+
+    src, dst, _ = small_rmat()
+    write_edge_list(tmp / f"{name}_edges", [(src, dst)], weighted=weighted,
+                    seed=1)
+    preprocess_graph(str(tmp / f"{name}_edges"), str(tmp / name),
+                     **preprocess)
+    shutil.rmtree(tmp / f"{name}_edges")
+    return str(tmp / name)
+
+
+def quantized_mutation(tmp: Path, observe, kernel) -> None:
+    """(g) A weighted int8 store at SMALL_SCALE, mutable: a monotone commit
+    of 4,096 weighted inserts, then ``run_incremental("sssp")`` through B1
+    and through the plain version on the card, bitwise equal to each other
+    and to cold runs of both."""
+    import numpy as np
+
+    from repro_torch.session import GraphSession
+
+    t0 = time.perf_counter()
+    path = small_store(tmp, "int8_store", weighted=True, val_dtype="int8",
+                       threshold_edge_num=1 << SMALL_SCALE)
+    log(f"quantized: weighted RMAT scale {SMALL_SCALE} preprocessed to int8 "
+        f"in {time.perf_counter() - t0:.1f}s")
+    with GraphSession(path, mutable=True, cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        check(s.store.properties.get("val_dtype") == "int8",
+              f"the store's edges are {s.store.properties.get('val_dtype')}")
+        s.iteration_observers.append(observe)
+        plain_cfg = s.config.replace(use_kernel=False)
+        prev = s.run("sssp", source=0)
+        kernel[0] = "none"
+        prev_plain = s.run("sssp", source=0, config=plain_cfg)
+        kernel[0] = "fused"
+        check(np.array_equal(prev.values, prev_plain.values),
+              "int8 sssp differs from the plain version before the commit")
+        rng = np.random.default_rng(3)
+        targets = sorted(int(p) for p in rng.choice(s.store.num_shards, 4,
+                                                    replace=False))
+        src, dst = _new_edges(np, s, rng, 4096, targets)
+        w = (rng.random(src.size) * 9 + 1).astype(np.float32)
+        s.apply_mutations(inserts=(src, dst, w))
+        inc = s.run_incremental("sssp", source=0, prev=prev)
+        cold = s.run("sssp", source=0)
+        kernel[0] = "none"
+        inc_plain = s.run_incremental("sssp", source=0, prev=prev_plain,
+                                      config=plain_cfg)
+        cold_plain = s.run("sssp", source=0, config=plain_cfg)
+        kernel[0] = "fused"
+    log(_run_line("quantized: int8 incremental sssp", inc, ("cold", cold)))
+    for what, r in (("plain incremental", inc_plain), ("cold", cold),
+                    ("plain cold", cold_plain)):
+        check(np.array_equal(inc.values, r.values),
+              f"int8 incremental sssp differs from the {what} run")
+    check(inc.iterations == inc_plain.iterations <= cold.iterations
+          and np.isfinite(inc.values).sum() > 1,
+          f"int8 incremental sssp: {inc.iterations} iterations, plain "
+          f"{inc_plain.iterations}, cold {cold.iterations}")
+    log(f"quantized: int8 run_incremental sssp after 4096 weighted inserts "
+        f"into shards {targets} equals the plain version and cold runs "
+        f"bitwise; {int(np.isfinite(inc.values).sum())} vertices reached")
+
+
+# --------------------------------------------------------------------------
+EXACT_FIELDS = ("iteration", "active_ratio", "shards_processed",
+                "shards_skipped", "disk_bytes", "cache_hit_ratio",
+                "selective_enabled", "edges_processed")
+
+
+def _stats(r) -> list:
+    return [tuple(getattr(h, f) for f in EXACT_FIELDS) for h in r.history]
+
+
+def _kernel_of(cfg, k: int):
+    """The counter a run's shards launch under (None: the plain version)."""
+    if cfg.use_kernel is False:
+        return None
+    name = "ell_spmv_fused" if cfg.fused_gather else "ell_fold"
+    return name if k == 1 else f"{name}_batch"
+
+
+def phase_zoo(torch, store_path: str, sources, tmp: Path) -> dict:
+    """Phase 9: the app zoo and the baselines.  ``sources`` are phase 5's.
+    Returns the phase's launch counts (set to 0 at its start)."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.session import GraphSession
+
+    cuda.reset_launches()
+    expect = dict.fromkeys(cuda.launches, 0)
+
+    def count(cfg, k, r):
+        name = _kernel_of(cfg, k)
+        if name is not None:
+            expect[name] += sum(h.shards_processed for h in r.history)
+
+    with GraphSession(store_path, cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        t0 = time.perf_counter()
+        s.warm()
+        log(f"zoo: cache warmed in {time.perf_counter() - t0:.1f}s; every "
+            f"zoo run capped at max_iters={ZOO_ITERS}")
+        base = s.config
+        variants = {"fused": base,
+                    "gather+fold": base.replace(fused_gather=False),
+                    "plain": base.replace(use_kernel=False)}
+        zoo_solo(s, variants, count)
+        solo = zoo_batches(s, variants, sources, count)
+        zoo_triangles(s, variants, count)
+        walks = zoo_walks(store_path, s, sources)
+        svc_shards = zoo_service(s, sources, solo, walks, count)
+    baselines(tmp, count)
+    launches = dict(cuda.launches)
+    fused = expect["ell_spmv_fused"] + expect["ell_spmv_fused_batch"]
+    check(launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
+          == fused + svc_shards
+          and launches["ell_spmv_fused_batch"] >= expect[
+              "ell_spmv_fused_batch"] > 0
+          and launches["ell_fold"] == expect["ell_fold"] > 0
+          and launches["ell_fold_batch"] == expect["ell_fold_batch"] > 0
+          and launches["ell_gather_fold"] == 0,
+          f"zoo: launches {launches}, expected {expect} plus {svc_shards} "
+          "fused in the service")
+    log(f"zoo: launches {launches} equal the shards the runs processed")
+    return launches
+
+
+def zoo_solo(s, variants, count) -> None:
+    """(a) label_propagation and kcore (k = 2) through B1, B2 and the plain
+    version: values and IterationStats bitwise equal."""
+    import numpy as np
+
+    for app, kw in (("label_propagation", {}), ("kcore", dict(k=2))):
+        runs = {}
+        for variant, cfg in variants.items():
+            r = s.run(app, config=cfg, max_iters=ZOO_ITERS, **kw)
+            count(cfg, 1, r)
+            runs[variant] = r
+            log(_run_line(f"zoo: {variant:11s} {app:17s}", r)
+                + f" converged={r.converged}")
+            check(r.values.shape == (s.n,) and np.isfinite(r.values).all(),
+                  f"{variant} {app}: bad values")
+        want = runs["plain"]
+        for variant in ("fused", "gather+fold"):
+            check(np.array_equal(runs[variant].values, want.values)
+                  and _stats(runs[variant]) == _stats(want),
+                  f"{app} {variant} differs from the plain run (values or "
+                  "IterationStats)")
+        live = (want.values > 0).sum() if app == "kcore" else len(
+            np.unique(want.values))
+        log(f"zoo: {app} through B1, B2 and plain bitwise equal; "
+            f"{'alive' if app == 'kcore' else 'distinct labels'} {live}")
+
+
+def zoo_batches(s, variants, sources, count) -> dict:
+    """(b) lp_multi over phase 5's sources and kcore_multi over k = 1..16
+    at K = 16 through B1, B3 and plain; each column equals its solo run.
+    Returns the solo results by (app, source or k)."""
+    import numpy as np
+
+    solo = {}
+    for app, values in (("lp", sources), ("kcore", list(range(1, 17)))):
+        results = {}
+        for variant, cfg in variants.items():
+            t0 = time.perf_counter()
+            s.run_batch(app, sources=values, config=cfg, max_iters=ZOO_ITERS)
+            r = s.last_batch_result
+            count(cfg, len(values), r)
+            results[variant] = r
+            fetch = sum(h.fetch_seconds for h in r.history)
+            log(f"zoo: {variant:11s} {app:5s} K={r.num_columns} "
+                f"iterations={r.iterations} "
+                f"column_iterations={r.column_iterations.tolist()} "
+                f"seconds={r.total_seconds:.3f} "
+                f"wall_s={time.perf_counter() - t0:.3f} "
+                f"shards={sum(h.shards_processed for h in r.history)} "
+                f"fetch_s={fetch:.3f}")
+        want = results["plain"]
+        for variant in ("fused", "gather+fold"):
+            r = results[variant]
+            check(np.array_equal(r.values, want.values)
+                  and np.array_equal(r.column_iterations,
+                                     want.column_iterations)
+                  and _stats(r) == _stats(want),
+                  f"{app} K=16 {variant} differs from the plain run")
+        batch = results["fused"]
+        t0 = time.perf_counter()
+        seconds = 0.0
+        for k, v in enumerate(values):
+            if app == "kcore":
+                r = s.run("kcore", k=v, max_iters=ZOO_ITERS)
+                count(s.config, 1, r)
+            else:
+                r = s.run_batch("lp", sources=[v], max_iters=ZOO_ITERS)[0]
+                count(s.config, 1, s.last_batch_result)
+            seconds += r.total_seconds
+            solo[app, v] = r
+            check(np.array_equal(batch.values[:, k], r.values)
+                  and int(batch.column_iterations[k]) == r.iterations,
+                  f"{app} column {k} ({v}) differs from its solo run")
+        log(f"zoo: {app} K=16 fused {batch.total_seconds:.3f}s; 16 solo runs "
+            f"{seconds:.3f}s (wall {time.perf_counter() - t0:.1f}s), each "
+            "equal to its column")
+    return solo
+
+
+def zoo_triangles(s, variants, count) -> None:
+    """(c) A triangle slab [0, 128) in chunks of 64: two K = 64 runs of
+    triangles_multi, three sweeps each, on one engine a config."""
+    import numpy as np
+
+    runs = {}
+    for variant, cfg in variants.items():
+        t0 = time.perf_counter()
+        r = s.run("triangles", lo=0, hi=128, chunk=64, config=cfg)
+        count(cfg, 64, r)
+        runs[variant] = r
+        log(_run_line(f"zoo: {variant:11s} triangles [0, 128)", r)
+            + f" wall_s={time.perf_counter() - t0:.3f}")
+        check(r.iterations == 6, f"triangles {variant}: {r.iterations} "
+                                 "sweeps, expected 2 chunks of 3")
+    engines = [k for k in s._engines if k[0] == ("sig", ("triangles_multi",
+                                                          64))]
+    check(len(engines) == len(variants),
+          f"{len(engines)} [n, 64] triangle engines for {len(variants)} "
+          "configs")
+    want = runs["plain"]
+    for variant in ("fused", "gather+fold"):
+        check(np.array_equal(runs[variant].values, want.values)
+              and _stats(runs[variant]) == _stats(want),
+              f"triangles {variant} differs from the plain run")
+    # on a directed graph with self-loops a count is half the closed
+    # walks u -> v -> w -> u through u: a multiple of 0.5
+    counts = want.values[:128]
+    check(np.array_equal(2 * counts, np.round(2 * counts))
+          and counts.sum() > 0 and not want.values[128:].any(),
+          "triangle counts are not multiples of 0.5 on the slab alone")
+    log(f"zoo: triangles through B1, B3 and plain at K=64 bitwise equal; "
+        f"counts on [0, 128) sum to {counts.sum()}, max {counts.max()}")
+
+
+def zoo_walks(store_path, s, sources) -> dict:
+    """(d) 16 random walks (length 8, seed 0) on the card's session and on
+    a ``device="cpu"`` session over the same store, both from a cold cache:
+    the same walks and the same cache trace, no kernel launched; a solo
+    walk equals its column.  Returns the card's columns by source."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.session import GraphSession
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        with GraphSession(store_path, device=device, cache_mode=1,
+                          cache_budget_bytes=CACHE_BUDGET) as w:
+            before = dict(cuda.launches)
+            t0 = time.perf_counter()
+            cols = w.run_batch("random_walk", sources=sources, length=8,
+                               seed=0)
+            r = w.last_batch_result
+            check(cuda.launches == before, "random walks launched a kernel")
+            trace = [(h.shards_processed, h.disk_bytes, h.cache_hit_ratio,
+                      h.edges_processed) for h in r.history]
+            out[device] = (r, trace, cols)
+            log(f"zoo: random_walks on a {device} session: K=16 steps="
+                f"{r.column_iterations.tolist()} "
+                f"cache_gets={sum(t[0] for t in trace)} "
+                f"disk_bytes={sum(t[1] for t in trace)} "
+                f"wall_s={time.perf_counter() - t0:.3f}")
+    (g, g_trace, cols), (c, c_trace, _) = out["cuda"], out["cpu"]
+    check(np.array_equal(g.values, c.values)
+          and np.array_equal(g.column_iterations, c.column_iterations)
+          and g_trace == c_trace,
+          "random walks on the card's session differ from the CPU's")
+    one = s.run_batch("random_walk", sources=[sources[3]], length=8,
+                      seed=0)[0]
+    check(np.array_equal(one.values, cols[3].values),
+          "a solo walk differs from its column")
+    log("zoo: random walks equal on the cuda and cpu sessions (values, "
+        "steps, cache trace); the solo walk equals its column")
+    return {v: col for v, col in zip(sources, cols)}
+
+
+def zoo_service(s, sources, solo, walks, count) -> int:
+    """(e) lp, kcore, triangle_count and random_walk queries from 4 client
+    threads to ``s.service(max_batch=16)``; every answer equals its solo
+    run.  Returns the shards the service's sweeps processed."""
+    import numpy as np
+
+    tri = [0, 1, 2, 3]
+    queries = ([("lp", dict(source=v)) for v in sources]
+               + [("kcore", dict(k=k)) for k in range(1, 17)]
+               + [("triangle_count", dict(vertex=v)) for v in tri]
+               + [("random_walk", dict(source=v, length=8, seed=0))
+                  for v in sources])
+    want = {}
+    for v in tri:
+        want["triangle_count", v] = s.run_batch("triangle_count",
+                                                sources=[v])[0]
+        count(s.config, 1, s.last_batch_result)
+    shards = []
+    lock = threading.Lock()
+
+    def observe(st):
+        with lock:
+            shards.append(st.shards_processed)
+
+    answers, errors = {}, []
+    with s.service(max_batch=BATCH_K, max_wait_ms=50.0, max_inflight=2,
+                   memoize=False) as svc:
+        def client(c):
+            try:
+                futs = [(i, svc.submit(app, max_iters=ZOO_ITERS, **kw))
+                        for i, (app, kw) in enumerate(queries) if i % 4 == c]
+                for i, f in futs:
+                    answers[i] = f.result(timeout=600)
+            except BaseException as exc:  # noqa: BLE001 — checked below
+                errors.append(exc)
+
+        s.iteration_observers.append(observe)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        snap = svc.stats.snapshot()
+    s.iteration_observers.clear()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"zoo service clients failed: {errors}")
+    for i, (app, kw) in enumerate(queries):
+        v = next(iter(kw.values()))
+        ref = (walks[v] if app == "random_walk"
+               else want[app, v] if app == "triangle_count"
+               else solo[app, v])
+        check(np.array_equal(answers[i].values, ref.values)
+              and answers[i].iterations == ref.iterations,
+              f"service {app} {kw} differs from its solo run")
+    log(f"service: {len(queries)} lp/kcore/triangle_count/random_walk "
+        f"queries from 4 threads in {wall:.3f}s: "
+        f"qps={len(queries) / wall:.3f} p50_ms={snap['p50_ms']:.1f} "
+        f"p99_ms={snap['p99_ms']:.1f} "
+        f"batch_occupancy={snap['batch_occupancy']}; every answer equals "
+        "its solo run")
+    return sum(shards)
+
+
+def baselines(tmp: Path, count) -> None:
+    """(f) ESG and PSW on the card and on the CPU at SMALL_SCALE: bfs and cc
+    values, iterations and bytes read/written equal, and no kernel
+    launched; seconds and bytes per iteration beside the session's on a
+    store of the same edges."""
+    import numpy as np
+
+    from repro_torch.baselines import ESGEngine, PSWEngine
+    from repro_torch.core.apps import get_app
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.session import GraphSession
+
+    src, dst, n = small_rmat()
+    t0 = time.perf_counter()
+    path = small_store(tmp, "small_store")
+    log(f"baselines: RMAT scale {SMALL_SCALE} |V|={n} |E|={src.size}, "
+        f"session store preprocessed in {time.perf_counter() - t0:.1f}s")
+    for app in ("bfs", "cc"):
+        # cache mode 0: every iteration reads its shards from disk, the
+        # I/O model of the paper's Table 3
+        with GraphSession(path, cache_mode=0) as s:
+            r = s.run(app)
+            count(s.config, 1, r)
+        disk = sum(h.disk_bytes for h in r.history)
+        log(f"baselines: session     {app:3s} iterations={r.iterations} "
+            f"seconds={r.total_seconds:.3f} "
+            f"s_per_iter={r.total_seconds / r.iterations:.4f} "
+            f"read_per_iter={disk / r.iterations:.0f} written_per_iter=0")
+        for cls in (ESGEngine, PSWEngine):
+            out = {}
+            for device in ("cuda", "cpu"):
+                work = tmp / f"{cls.__name__}_{app}_{device}"
+                eng = cls(str(work), src, dst, n, device=device)
+                r0, w0 = eng.io.read, eng.io.written
+                before = dict(cuda.launches)
+                vals, it, secs = eng.run(get_app(app), max_iters=100)
+                check(cuda.launches == before,
+                      f"{cls.__name__} launched a kernel")
+                out[device] = (vals, it, secs, eng.io.read - r0,
+                               eng.io.written - w0)
+                shutil.rmtree(work)
+            g, c = out["cuda"], out["cpu"]
+            check(np.array_equal(g[0], c[0]) and g[1] == c[1]
+                  and g[3:] == c[3:],
+                  f"{cls.__name__} {app} on the card differs from the CPU "
+                  f"(iterations {g[1]}/{c[1]}, io {g[3:]}/{c[3:]})")
+            check(np.array_equal(g[0], r.values),
+                  f"{cls.__name__} {app} disagrees with the session")
+            log(f"baselines: {cls.__name__} {app:3s} iterations={g[1]} "
+                f"seconds={g[2]:.3f} s_per_iter={g[2] / g[1]:.4f} "
+                f"read_per_iter={g[3] / g[1]:.0f} "
+                f"written_per_iter={g[4] / g[1]:.0f} (cpu seconds "
+                f"{c[2]:.3f}; values and bytes equal)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1708,15 +2157,21 @@ def main() -> int:
                                          batch[0])
         log(f"storage: all comparisons passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        zoo_launches = phase_zoo(torch, str(store.path), batch[0], tmp)
+        log(f"zoo: all comparisons passed in "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
-    # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4), and the
-    # storage and mutation phase's (K = 1 and the service's batches)
+    # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4), the storage
+    # and mutation phase's (K = 1 and the service's batches) and the zoo's
     for name, rec in records.items():
-        rec["launches"] = (batch_launches if name.endswith("_batch")
-                           else launches)[name] + storage_launches[name]
+        rec["launches"] = ((batch_launches if name.endswith("_batch")
+                            else launches)[name] + storage_launches[name]
+                           + zoo_launches[name])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -11,17 +11,21 @@ reference), with the SpMV hot loop in hand-written CUDA kernels for Hopper.
 This package imports torch and numpy, never jax and nothing of ``repro``;
 both packages read and write the same preprocessed stores and checkpoints.
 """
-from repro_torch.core.apps import (VertexProgram, available_apps,  # noqa: F401
-                                   get_app, register_app)
-from repro_torch.core.engine import (EngineConfig, IterationStats,  # noqa: F401
-                                     RunResult, VSWEngine)
+from repro_torch.core.apps import (BatchedVertexProgram,  # noqa: F401
+                                   VertexProgram, available_apps, get_app,
+                                   register_app)
+from repro_torch.core.cache import CompressedShardCache  # noqa: F401
+from repro_torch.core.engine import (BatchRunResult, EngineConfig,  # noqa: F401
+                                     IterationStats, RunResult, VSWEngine)
+from repro_torch.core.pipeline import ShardPipeline  # noqa: F401
 from repro_torch.graph.compact import CompactionReport, compact  # noqa: F401
 from repro_torch.graph.delta import DeltaBudgetError, DeltaGraphStore  # noqa: F401
-from repro_torch.graph.generate import materialize, rmat_edges  # noqa: F401
+from repro_torch.graph.generate import (materialize, rmat_edges,  # noqa: F401
+                                        uniform_edges, zipf_edges)
 from repro_torch.graph.memory import MemoryGraphStore  # noqa: F401
 from repro_torch.graph.packed import PackedGraphStore, pack_graph  # noqa: F401
 from repro_torch.graph.preprocess import preprocess_graph  # noqa: F401
 from repro_torch.graph.source import (ConcurrentMutationError,  # noqa: F401
-                                      MissingGraphError)
+                                      MissingGraphError, ShardSource)
 from repro_torch.graph.storage import GraphStore, write_edge_list  # noqa: F401
 from repro_torch.session import GraphSession  # noqa: F401

@@ -408,10 +408,17 @@ class GraphService:
     def submit(self, app: str, **params) -> Future:
         """Queue one query; returns a future resolving to its RunResult.
 
-        ``app`` is a registered single-query name (``"sssp"``, ``"bfs"``,
-        ``"cc"``, ``"pagerank"``) or a batch-only name (``"ppr"``);
-        ``params`` are its factory arguments (``source=``, ``seed=``,
-        ``damping=``...) plus an optional ``max_iters``.  Raises
+        ``app`` is any name ``list_apps()`` reports: a single-query app
+        (``"sssp"``, ``"bfs"``, ``"cc"``, ``"pagerank"``,
+        ``"label_propagation"``, ``"kcore"``, the ``"triangles"`` driver,
+        ...) or a batch-only name (``"ppr"``, ``"lp"``,
+        ``"triangle_count"``, ``"random_walk"``).  Names with a
+        ``BatchSpec`` coalesce into one ``run_batch`` sweep: sssp/bfs/lp by
+        ``source=``, ppr by ``seed=``, kcore by its threshold ``k=``,
+        triangle_count by ``vertex=``, random_walk by ``source=`` (walks
+        run on the host).  ``params`` are the factory arguments
+        (``source=``, ``seed=``, ``damping=``, ``length=``...) plus an
+        optional ``max_iters``.  Raises
         ``ServiceClosed`` after ``close()`` and ``AdmissionError`` when the
         pending queue is at ``max_queue`` or ``app`` is not served.
         """

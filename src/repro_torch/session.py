@@ -59,8 +59,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.apps import (BatchedVertexProgram, VertexProgram,
-                                   get_app, is_incremental)
+from repro_torch.core.apps import (BatchedVertexProgram, DriverProgram,
+                                   VertexProgram, get_app, is_incremental)
 from repro_torch.core.cache import CompressedShardCache, PartitionedShardCache
 from repro_torch.core.distributed import ShardedVSWEngine, assign_shards
 from repro_torch.core.engine import (BatchRunResult, EngineConfig,
@@ -88,12 +88,14 @@ _BATCH_ALIASES = {
     "triangle_count": "triangles_multi",
     "random_walk": "random_walks",
 }
-# factories whose per-column parameter is not called "sources"; sources=
-# still works and is rewritten onto the factory's own vocabulary
-_BATCH_PARAMS = {"personalized_pagerank": "seeds"}
-# batched factories and drivers of the reference's app zoo (ROADMAP A7)
-_UNPORTED_BATCH_APPS = ("lp_multi", "kcore_multi", "triangles_multi",
-                        "random_walks", "triangles")
+# factories whose per-column parameter is not called "sources" (PPR seeds,
+# k-core thresholds, triangle-count probe vertices); sources= still works
+# for all of them and is rewritten onto the factory's own vocabulary
+_BATCH_PARAMS = {
+    "personalized_pagerank": "seeds",
+    "kcore_multi": "ks",
+    "triangles_multi": "vertices",
+}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -244,7 +246,8 @@ class GraphSession:
         return make_data_devices(num_devices, self._device_spec)
 
     def _resolve(self, app, app_kwargs) -> tuple[VertexProgram, object]:
-        if isinstance(app, (VertexProgram, BatchedVertexProgram)):
+        if isinstance(app, (VertexProgram, BatchedVertexProgram,
+                            DriverProgram)):
             if app_kwargs:
                 raise TypeError(
                     "application kwargs only apply when dispatching by name; "
@@ -252,6 +255,9 @@ class GraphSession:
             program = app
         else:
             program = get_app(app, **app_kwargs)
+        if isinstance(program, DriverProgram):
+            # host-driven: no engine, so the key is unused
+            return program, ("driver", program.name)
         # programs declaring a jit_signature share engines across every
         # parameterization with identical device callables (e.g. ALL sssp
         # sources): the signature is the cache key and the concrete program
@@ -271,13 +277,20 @@ class GraphSession:
         ``engine(...).run()`` works; concurrent callers should go through
         ``session.run`` (which pins the program per call) instead."""
         program, prog_key = self._resolve(app, app_kwargs)
+        if isinstance(program, DriverProgram):
+            raise TypeError(
+                f"{program.name!r} is a host-driven application and has no "
+                "engine; dispatch it through session.run / run_batch")
         return self._engine_for(program, prog_key, config)
 
     def _run_target(self, app, app_kwargs, config):
         """(engine, program-to-pin) for one run: signature-keyed engines get
         the resolved program pinned per call; name-keyed engines run their
-        own program."""
+        own program; host-driven programs have no engine — (None,
+        driver)."""
         program, prog_key = self._resolve(app, app_kwargs)
+        if isinstance(program, DriverProgram):
+            return None, program
         eng = self._engine_for(program, prog_key, config)
         return eng, (program if prog_key[0] == "sig" else None)
 
@@ -319,11 +332,30 @@ class GraphSession:
         ``config`` overrides the session config for this application's
         engine (the edge cache stays shared).  Returns a ``RunResult`` with
         numpy ``values``, ``iterations``, ``converged`` and ``history``.
+        Host-driven applications (``triangles``, ``random_walks``) run
+        their own loop and take no checkpoint arguments.
         """
         eng, run_program = self._run_target(app, app_kwargs, config)
+        if eng is None:  # host-driven application
+            return self._run_driver(
+                run_program, max_iters=max_iters,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                config=config)
         return eng.run(max_iters=max_iters, checkpoint_dir=checkpoint_dir,
                        checkpoint_every=checkpoint_every, resume=resume,
                        program=run_program)
+
+    def _run_driver(self, program: DriverProgram, *, max_iters,
+                    checkpoint_dir, checkpoint_every, resume, config):
+        if checkpoint_dir or checkpoint_every or resume:
+            raise TypeError(
+                f"{program.name!r} is a host-driven application; engine "
+                "checkpoint/resume do not apply to it")
+        result = program.run(self, max_iters=max_iters, config=config)
+        if isinstance(result, BatchRunResult):
+            self.last_batch_result = result
+        return result
 
     def iter_run(self, app: str | VertexProgram, *, max_iters: int = 200,
                  checkpoint_dir: str | None = None, checkpoint_every: int = 0,
@@ -333,6 +365,10 @@ class GraphSession:
         every iteration; the ``RunResult`` is the generator's return value
         (``StopIteration.value``) and ``engine(app).last_result``."""
         eng, run_program = self._run_target(app, app_kwargs, config)
+        if eng is None:
+            raise TypeError(
+                f"{run_program.name!r} is a host-driven application; "
+                "iter_run streams engine iterations — use run() for it")
         return eng.iter_run(max_iters=max_iters, checkpoint_dir=checkpoint_dir,
                             checkpoint_every=checkpoint_every, resume=resume,
                             program=run_program)
@@ -354,12 +390,16 @@ class GraphSession:
         app:
             A single-source name (``"sssp"``/``"bfs"``/``"pagerank"``/
             ``"ppr"`` — the last two become personalized PageRank over the
-            given seeds), a batched factory name (``"sssp_multi"``/
-            ``"bfs_multi"``/``"personalized_pagerank"``), or a
+            given seeds — ``"lp"``, ``"kcore"``, ``"triangle_count"`` or
+            ``"random_walk"``), a batched factory name (``"sssp_multi"``,
+            ``"lp_multi"``, ``"kcore_multi"``, ``"triangles_multi"``, ...),
+            the batched driver ``"random_walks"``, or a
             ``BatchedVertexProgram``.
         sources:
-            One frontier vertex per column (for PPR these are the ``seeds``;
-            either spelling works).  Required when dispatching by name.
+            One frontier vertex per column (for PPR these are the
+            ``seeds``, for k-core the thresholds ``ks``, for triangle
+            counts the probe ``vertices``; either spelling works).
+            Required when dispatching by name.
         max_iters / checkpoint_dir / checkpoint_every / resume / config:
             As in ``run``; checkpoints hold the full [n, K] state and the
             per-column iteration counts, so a resumed batch continues every
@@ -373,7 +413,7 @@ class GraphSession:
         values, shared history) stays available as
         ``session.last_batch_result`` until the next ``run_batch`` call.
         """
-        if isinstance(app, BatchedVertexProgram):
+        if isinstance(app, (BatchedVertexProgram, DriverProgram)):
             if sources is not None:
                 raise TypeError(
                     "sources= only applies when dispatching by name; the "
@@ -382,8 +422,6 @@ class GraphSession:
             program, prog_key = self._resolve(app, app_kwargs)
         else:
             name = _BATCH_ALIASES.get(app, app)
-            if name in _UNPORTED_BATCH_APPS:
-                raise _not_ported(f"run_batch({app!r})", "A7")
             param = _BATCH_PARAMS.get(name, "sources")
             if sources is not None:
                 if param in app_kwargs:
@@ -407,6 +445,14 @@ class GraphSession:
                     raise TypeError(
                         f"{name!r} is not a batched application") from None
                 raise  # genuine bad kwarg — keep the factory's own message
+        if isinstance(program, DriverProgram):
+            if not program.batched:
+                raise TypeError(f"{app!r} is not a batched application")
+            result = self._run_driver(
+                program, max_iters=max_iters, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                config=config)
+            return result.columns()
         if not isinstance(program, BatchedVertexProgram):
             raise TypeError(f"{app!r} is not a batched application")
         eng = self._engine_for(program, prog_key, config)
@@ -514,7 +560,7 @@ class GraphSession:
         previous values (0 iterations).
         """
         program, prog_key = self._resolve(app, app_kwargs)
-        if isinstance(program, BatchedVertexProgram):
+        if isinstance(program, (BatchedVertexProgram, DriverProgram)):
             raise TypeError(
                 "run_incremental takes single-frontier applications; "
                 "run_batch results cannot seed it")

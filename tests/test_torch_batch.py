@@ -313,9 +313,24 @@ def test_run_batch_argument_validation(graph_store):
                                  "triangles_multi", "random_walks",
                                  "triangles"])
 def test_unported_batched_apps_name_their_roadmap_item(graph_store, app):
-    with GraphSession(str(graph_store.path), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="A7"):
-            s.run_batch(app, sources=[0])
+    """The app zoo's batched names (ROADMAP A7, raising here until it was
+    ported): ``run_batch(app, sources=[0])`` gives the reference's columns
+    bitwise, with equal iteration counts — or, for the ``triangles``
+    driver, which is not batched, the reference's TypeError."""
+    with GraphSession(str(graph_store.path), device="cpu") as s, \
+            RefSession(str(graph_store.path)) as ref:
+        if app == "triangles":
+            for sess in (s, ref):
+                with pytest.raises(TypeError,
+                                   match="not a batched application"):
+                    sess.run_batch(app, sources=[0])
+            return
+        got, want = s.run_batch(app, sources=[0]), ref.run_batch(app,
+                                                                  sources=[0])
+        assert len(got) == len(want) == 1
+        np.testing.assert_array_equal(got[0].values, want[0].values)
+        assert got[0].iterations == want[0].iterations
+        assert got[0].converged == want[0].converged
 
 
 def test_batched_state_round_trip():
@@ -334,13 +349,19 @@ def test_batched_state_round_trip():
 
 
 def test_serving_metadata_matches_reference():
-    """The port's registry reports the reference's kind and family for
-    every name it carries, and batch specs exist for sssp/bfs/ppr only."""
+    """The port's registry carries the reference's names, each with its
+    kind and family, and the reference's batch specs."""
+    from repro.core.apps import batch_spec as ref_batch_spec
     want = {i.name: i for i in ref_list_apps()}
     got = {i.name: i for i in list_apps()}
-    assert {"sssp_multi", "bfs_multi", "personalized_pagerank",
-            "ppr"} <= set(got)
+    assert set(got) == set(want)
     for name, info in got.items():
         assert dataclasses.astuple(info) == dataclasses.astuple(want[name])
-    assert {n for n in got if batch_spec(n)} == {"sssp", "bfs", "ppr"}
-    assert batch_spec("ppr").exact is False and batch_spec("lp") is None
+        spec = batch_spec(name)
+        ref_spec = ref_batch_spec(name)
+        assert (spec is None) == (ref_spec is None), name
+        if spec is not None:
+            assert dataclasses.astuple(spec) == dataclasses.astuple(ref_spec)
+    assert {n for n in got if batch_spec(n)} == {
+        "sssp", "bfs", "ppr", "lp", "kcore", "triangle_count", "random_walk"}
+    assert batch_spec("ppr").exact is False and batch_spec("lp").exact

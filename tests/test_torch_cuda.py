@@ -557,3 +557,97 @@ def test_staging_packed_shards_on_card(dev, store_path, tmp_path):
             assert torch.equal(a, b)
     packed.close()
     assert packed._mm.closed
+
+
+# ---------------------------------------------------------------------------
+# the app zoo and the baselines on the card
+# ---------------------------------------------------------------------------
+ZOO_SOLO = [("label_propagation", {}), ("kcore", dict(k=2)),
+            ("kcore", dict(k=5)), ("triangles", dict(chunk=16, hi=40))]
+
+
+@pytest.mark.parametrize("app,kw", ZOO_SOLO,
+                         ids=["lp", "kcore2", "kcore5", "triangles"])
+def test_zoo_on_card_matches_cpu(dev, store_path, app, kw):
+    """Exact apps: fused (B1), gather + fold (B2, B3 for the triangle
+    chunks) and plain on the card equal the CPU run bitwise, its
+    schedule included (the card's later runs read a warm cache, so disk
+    bytes are not compared); one kernel launch per processed shard."""
+    fields = ("iteration", "shards_processed", "shards_skipped",
+              "edges_processed", "active_ratio", "selective_enabled")
+
+    def stats(r):
+        return [tuple(getattr(h, f) for f in fields) for h in r.history]
+
+    with GraphSession(store_path, device="cpu") as s:
+        want = s.run(app, **kw)
+    batched = app == "triangles"
+    with GraphSession(store_path) as s:
+        for cfg in (s.config, s.config.replace(fused_gather=False),
+                    s.config.replace(use_kernel=False)):
+            cuda.reset_launches()
+            r = s.run(app, config=cfg, **kw)
+            shards = sum(h.shards_processed for h in r.history)
+            if cfg.use_kernel is not False:
+                name = ("ell_spmv_fused" if cfg.fused_gather
+                        else "ell_fold") + ("_batch" if batched else "")
+                assert cuda.launches[name] == shards > 0
+            np.testing.assert_array_equal(r.values, want.values)
+            assert stats(r) == stats(want)
+
+
+@pytest.mark.parametrize("app,kw", [
+    ("lp", dict(sources=[0, 7, 300, 1001, 4000, 2, 3, 64])),
+    ("kcore", dict(sources=[1, 2, 3, 4, 5, 6, 7, 8])),
+    ("triangle_count", dict(sources=list(range(16)))),
+    ("random_walk", dict(sources=[0, 7, 300, 1001], length=16, seed=4)),
+])
+def test_zoo_batches_on_card_match_cpu(dev, store_path, app, kw):
+    """Batched zoo programs through B1 and B3 at K > 1, and the host walk,
+    equal the CPU session's columns bitwise; each column equals its solo
+    form."""
+    with GraphSession(store_path, device="cpu") as s:
+        want = s.run_batch(app, **kw)
+        want_trace = [(h.shards_processed, h.disk_bytes, h.cache_hit_ratio)
+                      for h in s.last_batch_result.history]
+    with GraphSession(store_path) as s:
+        for i, cfg in enumerate((s.config,
+                                 s.config.replace(fused_gather=False))):
+            cuda.reset_launches()
+            got = s.run_batch(app, config=cfg, **kw)
+            if app == "random_walk":
+                assert sum(cuda.launches.values()) == 0  # walks on the host
+                if i == 0:  # both sessions' first walk starts cold
+                    assert [(h.shards_processed, h.disk_bytes,
+                             h.cache_hit_ratio)
+                            for h in s.last_batch_result.history] \
+                        == want_trace
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.values, w.values)
+                assert g.iterations == w.iterations
+        k = 1
+        one = dict(kw, sources=[kw["sources"][k]])
+        solo = (s.run("kcore", k=kw["sources"][k]) if app == "kcore"
+                else s.run_batch(app, **one)[0])
+        np.testing.assert_array_equal(got[k].values, solo.values)
+
+
+@pytest.mark.parametrize("engine", ["esg", "psw"])
+@pytest.mark.parametrize("app", ["bfs", "cc", "pagerank"])
+def test_baselines_on_card_match_cpu(dev, tmp_path, engine, app):
+    from repro_torch.baselines import ESGEngine, PSWEngine
+    from repro_torch.core.apps import get_app
+    cls = ESGEngine if engine == "esg" else PSWEngine
+    src, dst = materialize(rmat_edges(scale=10, edge_factor=8, seed=5))
+    n = int(max(src.max(), dst.max())) + 1
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = cls(str(tmp_path / device), src, dst, n, device=device)
+        vals, it, _ = eng.run(get_app(app), max_iters=10)
+        out[device] = (vals, it, eng.io.read, eng.io.written)
+    (g, g_it, *g_io), (w, w_it, *w_io) = out["cuda"], out["cpu"]
+    assert g_it == w_it and g_io == w_io
+    if app == "pagerank":
+        np.testing.assert_allclose(g, w, rtol=PPR_RTOL, atol=0)
+    else:
+        np.testing.assert_array_equal(g, w)

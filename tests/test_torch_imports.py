@@ -1,10 +1,12 @@
-"""Boundaries of the port: it imports neither jax nor the reference package,
-it runs on the CPU only when asked, what it has not ported raises, and the
-surfaces ported since work."""
+"""Boundaries of the port: it imports neither jax nor the reference package
+(the subprocess check; tests that compare the two import both), it runs on
+the CPU only when asked, what it has not ported raises, and the surfaces
+ported since work."""
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +24,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.serve.graph_service, repro_torch.obs.metrics\n"
         "import repro_torch.core.distributed, repro_torch.dist.context\n"
         "import repro_torch.graph.pack, repro_torch.graph.compact\n"
+        "import repro_torch.core.apps, repro_torch.baselines\n"
+        "import repro_torch.baselines.esg, repro_torch.baselines.psw\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -64,7 +68,6 @@ def _service_attach_hub(s):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s: s.run_batch("lp", sources=[0]), "A7"),
     (_service_attach_hub, "A8"),
     (lambda s: s.attach_hub(None), "A8"),
 ])
@@ -72,6 +75,18 @@ def test_unported_session_surfaces_raise(graph_store, call, item):
     with GraphSession(str(graph_store.path), device="cpu") as s:
         with pytest.raises(NotImplementedError, match=item):
             call(s)
+
+
+def test_app_zoo_is_ported(graph_store):
+    """``run_batch("lp")`` (ROADMAP A7) answers as the reference does."""
+    from repro.session import GraphSession as RefSession
+    with GraphSession(str(graph_store.path), device="cpu") as s, \
+            RefSession(str(graph_store.path)) as ref:
+        got = s.run_batch("lp", sources=[0, 5])
+        want = ref.run_batch("lp", sources=[0, 5])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.values, w.values)
+        assert g.iterations == w.iterations
 
 
 def _mutate_and_continue(s):

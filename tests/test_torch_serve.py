@@ -185,11 +185,20 @@ def test_admission_rejects_unserved_app_and_full_queue(graph_store):
                 svc.submit("cc")
             assert svc.stats.snapshot()["rejected"] == 1
         with GraphService(sess) as svc:
-            # served by default: every registered app plus "ppr"; the
-            # reference's lp/kcore/... specs come with ROADMAP A7
-            for app in ("lp", "kcore", "nonsense"):
-                with pytest.raises(AdmissionError, match="not served"):
-                    svc.submit(app, source=0)
+            # served by default: every registered app plus the batch-only
+            # names; the app zoo's (ROADMAP A7) answer as the reference's
+            # solo runs do
+            with pytest.raises(AdmissionError, match="not served"):
+                svc.submit("nonsense", source=0)
+            lp = svc.submit("lp", source=0, max_iters=50)
+            kcore = svc.submit("kcore", k=2, max_iters=50)
+            with RefSession(str(graph_store.path)) as ref:
+                want_lp = ref.run_batch("lp", sources=[0], max_iters=50)[0]
+                want_kcore = ref.run("kcore", k=2, max_iters=50)
+            np.testing.assert_array_equal(lp.result(timeout=60).values,
+                                          want_lp.values)
+            np.testing.assert_array_equal(kcore.result(timeout=60).values,
+                                          want_kcore.values)
         svc = _parked_service(sess, max_queue=3)
         futs = [svc.submit("sssp", source=s) for s in (0, 1, 2)]
         with pytest.raises(AdmissionError, match="queue full"):
