@@ -90,6 +90,21 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    seconds and disk bytes per iteration (cache mode 0).  Every zoo run is
    capped at ``ZOO_ITERS``.  The phase's launches must equal the shards
    its runs processed.
+10. telemetry — on a warm session: (a) the bench's default trace (bfs :
+   sssp = 3 : 1, max_iters 32, a 3x burst in the middle third) at half the
+   rate phase 5's K = 16 bfs run retires, ``TRACE_SECONDS`` long; (b)
+   ``replay_trace`` under phase 5's policy (max_batch 16, max_wait_ms 50,
+   two runners) with a ``MetricsHub`` emitting JSONL every 0.5 s; (c) the
+   same trace with the ``AdaptiveServeController`` at an SLO of half (b)'s
+   p99 and a fresh hub.  Every event completes, the two digests are equal,
+   four replayed events equal their solo runs, and each hub's counters
+   equal the replay's ``IterationStats``, cache bytes and completions; (d)
+   the same mix at RMAT scale ``SMALL_SCALE`` replayed on a cuda session
+   with kernels, one with ``use_kernel=False``, a ``device="cpu"`` session
+   and ``python -m repro_torch.serve.bench --adaptive --metrics`` in a
+   subprocess, all four digests equal; every metrics file passes
+   ``python -m repro_torch.obs``.  The phase's launches must equal the
+   shards its kernel sessions processed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -100,6 +115,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -139,6 +155,9 @@ REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
 LANES = 2                      # phase 7: lanes, and the D = S of the tiling
 SMALL_SCALE = 18               # phase 8's int8 store, phase 9's baselines
 ZOO_ITERS = 30                 # phase 9: the cap on every zoo run
+TRACE_SECONDS = 12.0           # phase 10: the scale-22 trace's length
+SMALL_EVENTS = 32              # phase 10 (d): the trace the cpu session
+SMALL_SPEED = 2.0              # replays too (events expected), its speed-up
 TILE_WIDTH = 128               # ELL width of the 2-D tiles
 
 
@@ -919,8 +938,9 @@ def _max_rel_err(np, got, want) -> float:
 def phase_batched(torch, store_path: str, solo):
     """The batched path and the service on one warm GraphSession.  ``solo``
     holds the main path's results (sssp/bfs from source 0).  Returns the
-    launch counts of the run_batch phase and ``(sources, the fused sssp
-    columns)`` for phase 7."""
+    launch counts of the run_batch phase, ``(sources, the fused sssp
+    columns)`` for phase 7 and the fused K = 16 bfs run's seconds for
+    phase 10."""
     import numpy as np
 
     from repro_torch.session import GraphSession
@@ -936,12 +956,13 @@ def phase_batched(torch, store_path: str, solo):
         rng = np.random.default_rng(1)
         sources = [0] + sorted(int(v) for v in rng.choice(
             cand[cand != 0], BATCH_K - 1, replace=False))
-        launches, cols = run_batch_path(torch, s, sources, solo)
+        launches, cols, bfs_seconds = run_batch_path(torch, s, sources,
+                                                     solo)
         profile_run(torch, f"bfs K={BATCH_K}",
                     lambda: (s.run_batch("bfs", sources=sources),
                              s.last_batch_result)[1])
         run_service(torch, s, sources, cols)
-    return launches, (sources, cols["sssp"])
+    return launches, (sources, cols["sssp"]), bfs_seconds
 
 
 def run_batch_path(torch, s, sources, solo):
@@ -1022,7 +1043,8 @@ def run_batch_path(torch, s, sources, solo):
             f"{len(sources)} queries vs solo {solo_s:.3f}s for one: "
             f"{len(sources) * solo_s / t:.2f}x the solo queries/s")
     log(f"batch: all comparisons passed; launches {launches}")
-    return launches, {app: cols["fused", app] for app, _ in runs}
+    return (launches, {app: cols["fused", app] for app, _ in runs},
+            results["fused", "bfs"].total_seconds)
 
 
 def run_service(torch, s, sources, cols) -> None:
@@ -2094,6 +2116,223 @@ def baselines(tmp: Path, count) -> None:
                 f"{c[2]:.3f}; values and bytes equal)")
 
 
+# --------------------------------------------------------------------------
+def _telemetry_line(label: str, r: dict, card: str) -> str:
+    line = (f"telemetry: {label} events={r['events']} "
+            f"wall_s={r['wall_seconds']:.3f} qps={r['qps']:.3f} "
+            f"p50_ms={r['p50_ms']:.1f} p95_ms={r['p95_ms']:.1f} "
+            f"p99_ms={r['p99_ms']:.1f} "
+            f"mean_occupancy={r['mean_occupancy']:.2f} "
+            f"batches={r['batches']}")
+    if "hub_sample_ms" in r:
+        line += f" hub_sample_ms={r['hub_sample_ms']:.3f}"
+    if "adjustments" in r:
+        line += (f" adjustments={r['adjustments']} "
+                 f"converged={r['converged']} max_batch={r['max_batch']} "
+                 f"max_wait_ms={r['max_wait_ms']:.2f}")
+    if "knob_path" in r:
+        line += " knob_path=" + ",".join(
+            f"{int(b)}/{w:.2f}" for b, w in r["knob_path"])
+    return f"{line} [{card}]"
+
+
+def _check_replay(r: dict, what: str) -> None:
+    check(r["completed"] == r["events"] and r["rejected"] == r["failed"] == 0
+          and r.get("controller_error") is None,
+          f"{what}: {r['completed']}/{r['events']} completed, "
+          f"{r['rejected']} rejected, {r['failed']} failed, controller "
+          f"error {r.get('controller_error')}")
+
+
+def _hub_replay(s, trace, cfg, metrics: Path, shards: list, what: str,
+                **kw) -> dict:
+    """``replay_trace`` on ``s`` with a fresh MetricsHub emitting to
+    ``metrics`` every 0.5 s; the hub's counters must equal the replay's
+    IterationStats, its cache bytes and its completions.  Adds the mean
+    ms of one ``hub.sample()`` (what each emit costs) to the result."""
+    from repro_torch.obs import MetricsHub
+    from repro_torch.serve.bench import replay_trace
+
+    stats = []
+    s.iteration_observers.append(stats.append)
+    disk0 = s.stats.disk_bytes
+    hub = MetricsHub(metrics, emit_interval=0.5)
+    try:
+        r = replay_trace(s, trace, cfg, hub=hub, **kw)
+    finally:
+        hub.close()
+        s.iteration_observers.clear()  # the hub's tap and ours
+    _check_replay(r, what)
+    # the emitter's cost: one sample (pollers included) per emit interval
+    t0 = time.perf_counter()
+    for _ in range(10):
+        snap = hub.sample()
+    r["hub_sample_ms"] = (time.perf_counter() - t0) * 100
+    if "adjustments" in r:  # the knobs' path, as the emitted gauges saw it
+        path = [(b, w) for (_, b), (_, w) in zip(
+            hub.timeseries("controller.max_batch"),
+            hub.timeseries("controller.max_wait_ms"))]
+        r["knob_path"] = [k for i, k in enumerate(path)
+                          if i == 0 or k != path[i - 1]]
+    counters, gauges = snap["counters"], snap["gauges"]
+    disk = s.stats.disk_bytes - disk0
+    check(counters["session.engine.iterations"] == len(stats) > 0
+          and counters["session.engine.disk_bytes"] == disk
+          == sum(st.disk_bytes for st in stats)
+          and counters["session.engine.shards_processed"]
+          == sum(st.shards_processed for st in stats)
+          and gauges["serve.completed"] == r["completed"],
+          f"{what}: hub counters {counters}, serve.completed "
+          f"{gauges.get('serve.completed')}; expected {len(stats)} "
+          f"iterations, {disk} disk bytes, {r['completed']} completed")
+    shards.append(sum(st.shards_processed for st in stats))
+    return r
+
+
+def phase_telemetry(torch, store_path: str, bfs_seconds: float,
+                    tmp: Path, card: str) -> dict:
+    """Phase 10: GraphPulse on the card.  ``bfs_seconds`` is phase 5's fused
+    K = 16 bfs run, from which the trace's rate and the controller's
+    cadence are taken.  Returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.obs import validate_file
+    from repro_torch.serve.bench import _default_trace
+    from repro_torch.serve.graph_service import ServiceConfig
+    from repro_torch.session import GraphSession
+
+    cuda.reset_launches()
+    shards: list = []  # per kernel replay: the shards its sweeps processed
+    # half the rate one K = 16 sweep at a time retires, a tick per half
+    # sweep (enough completions to trust a window's p99)
+    qps = 0.5 * BATCH_K / bfs_seconds
+    tick_s = bfs_seconds / 2
+    ctl = dict(controller_interval_s=tick_s,
+               controller_overrides=dict(min_samples=4, settle_ticks=3))
+    cfg = ServiceConfig(max_batch=BATCH_K, max_wait_ms=50.0, max_inflight=2,
+                        memoize=False)
+    metrics = {k: tmp / f"metrics_{k}.jsonl"
+               for k in ("static", "adaptive", "small", "cli")}
+    with GraphSession(store_path, cache_mode=1,
+                      cache_budget_bytes=CACHE_BUDGET) as s:
+        s.warm()
+        trace = _default_trace(s.n, qps=qps, duration_s=TRACE_SECONDS,
+                               seed=0)
+        trace.save(tmp / "trace.jsonl")
+        log(f"telemetry: trace of {len(trace)} events over "
+            f"{trace.duration:.1f}s at {qps:.3f} qps (3x burst in the "
+            f"middle third), mix {trace.apps()}; controller tick "
+            f"{tick_s:.3f}s")
+        kept = {}
+        sample = {0, len(trace) // 3, 2 * len(trace) // 3, len(trace) - 1}
+
+        def keep(i, e, res):
+            if i in sample:
+                kept[i] = (e, res.values)
+
+        static = _hub_replay(s, trace, cfg, metrics["static"], shards,
+                             "static replay", on_result=keep)
+        log(_telemetry_line("static", static, card))
+        adaptive = _hub_replay(s, trace, cfg, metrics["adaptive"], shards,
+                               "adaptive replay", adaptive=True,
+                               slo_p99_ms=static["p99_ms"] / 2, **ctl)
+        log(_telemetry_line(f"adaptive slo_p99_ms="
+                            f"{static['p99_ms'] / 2:.1f}", adaptive, card))
+        check(static["result_digest"] == adaptive["result_digest"],
+              "the adaptive replay's digest differs from the static one")
+        for i, (e, values) in sorted(kept.items()):
+            solo = s.run(e.app, **e.params)
+            shards.append(sum(h.shards_processed for h in solo.history))
+            check(np.array_equal(values, solo.values),
+                  f"replayed event {i} ({e.app} {e.params}) differs from "
+                  "its solo run")
+    log(f"telemetry: static and adaptive digests equal "
+        f"({static['result_digest'][:16]}); events {sorted(kept)} equal "
+        "their solo runs")
+    small_replays(tmp, trace, qps, static["p99_ms"] / 2, shards, metrics,
+                  card)
+    for path in metrics.values():
+        check(validate_file(path) > 0, f"{path.name} has no snapshot")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs",
+         *map(str, metrics.values())], capture_output=True, text=True,
+        env=_src_env(), timeout=120)
+    check(out.returncode == 0, f"python -m repro_torch.obs: {out.stdout} "
+                               f"{out.stderr[-2000:]}")
+    log("telemetry: " + "; ".join(out.stdout.split("\n")).strip("; "))
+    launches = dict(cuda.launches)
+    fused = launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
+    check(fused == sum(shards) > 0 and launches["ell_spmv_fused_batch"] > 0
+          and launches["ell_fold"] + launches["ell_fold_batch"]
+          + launches["ell_gather_fold"] == 0,
+          f"telemetry: launches {launches}, expected {sum(shards)} fused")
+    log(f"telemetry: launches {launches} equal the shards the kernel "
+        "sessions' sweeps processed")
+    return launches
+
+
+def _src_env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def small_replays(tmp: Path, big_trace, qps: float, slo_ms: float,
+                  shards: list, metrics: dict, card: str) -> None:
+    """(d) The same mix at SMALL_SCALE: one trace replayed on a cuda
+    session with kernels, one with ``use_kernel=False`` and a
+    ``device="cpu"`` session, then by the bench CLI in a subprocess on the
+    card; the four digests must be equal."""
+    from repro_torch.serve.bench import _default_trace, replay_trace
+    from repro_torch.serve.graph_service import ServiceConfig
+    from repro_torch.session import GraphSession
+
+    path = tmp / "small_store"  # phase 9's
+    if not (path / "property.json").exists():
+        small_store(tmp, "small_store")
+    n = small_rmat()[2]
+    # the 3x burst over a third of the trace: 5/3 of qps on average
+    trace = _default_trace(n, qps=qps, duration_s=SMALL_EVENTS / qps * 0.6,
+                           seed=1)
+    trace_file = trace.save(tmp / "trace_small.jsonl")
+    check(trace.apps().keys() == big_trace.apps().keys(),
+          f"scale-{SMALL_SCALE} trace mix {trace.apps()}")
+    cfg = ServiceConfig(max_batch=BATCH_K, max_wait_ms=50.0, max_inflight=2,
+                        memoize=False)
+    digests = {}
+    for label, kw in (("cuda", {}), ("cuda plain", dict(use_kernel=False)),
+                      ("cpu", dict(device="cpu"))):
+        with GraphSession(str(path), **kw) as s:
+            if label == "cuda":
+                r = _hub_replay(s, trace, cfg, metrics["small"], shards,
+                                f"scale-{SMALL_SCALE} replay",
+                                speed=SMALL_SPEED)
+            else:
+                r = replay_trace(s, trace, cfg, speed=SMALL_SPEED)
+                _check_replay(r, f"scale-{SMALL_SCALE} {label} replay")
+        digests[label] = r["result_digest"]
+        log(_telemetry_line(f"scale {SMALL_SCALE} {label} "
+                            f"speed={SMALL_SPEED}", r, card))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.bench", "--mode",
+         "replay", "--replay-trace", str(trace_file), "--graph", str(path),
+         "--adaptive", "--slo-p99-ms", f"{slo_ms:.3f}", "--speed",
+         str(SMALL_SPEED), "--metrics", str(metrics["cli"])],
+        capture_output=True, text=True, env=_src_env(), timeout=300)
+    check(out.returncode == 0, f"bench CLI exited {out.returncode}: "
+                               f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    lines = out.stdout.splitlines()
+    digest = [ln.split("=", 1)[1] for ln in lines
+              if ln.startswith("# result_digest=")]
+    digests["cli"] = digest[0] if digest else None
+    log(f"telemetry: bench CLI in {time.perf_counter() - t0:.1f}s: "
+        + " | ".join(ln for ln in lines if not ln.startswith("mode,")))
+    check(len(set(digests.values())) == 1,
+          f"scale-{SMALL_SCALE} replay digests differ: {digests}")
+    log(f"telemetry: scale-{SMALL_SCALE} digests of the kernel, plain, cpu "
+        f"and CLI replays equal ({digests['cli'][:16]})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -2143,7 +2382,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches, solo = phase_main_path(torch, str(store.path))
         torch.cuda.empty_cache()
-        batch_launches, batch = phase_batched(torch, str(store.path), solo)
+        batch_launches, batch, bfs_seconds = phase_batched(
+            torch, str(store.path), solo)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         launches["ell_gather_fold"] = phase_multi(
@@ -2162,16 +2402,23 @@ def main() -> int:
         zoo_launches = phase_zoo(torch, str(store.path), batch[0], tmp)
         log(f"zoo: all comparisons passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        telemetry_launches = phase_telemetry(torch, str(store.path),
+                                             bfs_seconds, tmp, card)
+        log(f"telemetry: all checks passed in "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
     # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4), the storage
-    # and mutation phase's (K = 1 and the service's batches) and the zoo's
+    # and mutation phase's (K = 1 and the service's batches), the zoo's and
+    # the telemetry replays'
     for name, rec in records.items():
         rec["launches"] = ((batch_launches if name.endswith("_batch")
                             else launches)[name] + storage_launches[name]
-                           + zoo_launches[name])
+                           + zoo_launches[name] + telemetry_launches[name])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -126,9 +126,9 @@ class ServiceConfig:
         everyone weighs 1.0 (pure round-robin among ready groups).
 
     ``max_batch``, ``max_wait_ms``, ``max_queue``, ``max_iters`` and
-    ``fair_weights`` are live-tunable via ``GraphService.reconfigure``;
-    the rest are fixed at construction (``max_inflight`` sizes a real
-    thread pool).
+    ``fair_weights`` are live-tunable via ``GraphService.reconfigure``
+    (the adaptive controller's write path); the rest are fixed at
+    construction (``max_inflight`` sizes a real thread pool).
     """
 
     max_batch: int = 16
@@ -229,7 +229,11 @@ class ServiceStats:
     snapshots subtract, giving rolling-window percentiles for free.  The
     cost is a documented ~1% relative error on quantiles (see
     ``Reservoir``; mean stays exact via sum/count).  Counters are lifetime
-    totals.  Sharing them with a telemetry hub is ROADMAP A8.
+    totals.
+
+    ``attach_hub`` shares these same reservoirs with a ``MetricsHub`` (no
+    double recording) and registers a poller exporting the counters, so
+    every snapshot the hub emits carries the serving state.
     """
 
     def __init__(self):
@@ -246,6 +250,8 @@ class ServiceStats:
         self.failed = 0
         self.queue_depth = 0
         self.queue_peak = 0
+        self._hub = None
+        self._hub_prefix = "serve"
 
     # -- recording hooks (service-internal) -----------------------------
     def record_submitted(self, queue_depth: int) -> None:
@@ -284,12 +290,42 @@ class ServiceStats:
             h = self._app_hists.get(app)
             if h is None:
                 h = self._app_hists[app] = Reservoir()
+                if self._hub is not None:
+                    self._hub.adopt_histogram(
+                        f"{self._hub_prefix}.latency_s.{app}", h)
             return h
+
+    # -- telemetry wiring -------------------------------------------------
+    def attach_hub(self, hub, prefix: str = "serve") -> None:
+        """Share the latency reservoirs with ``hub`` (adopted, not copied)
+        and export the counters as a poller named ``prefix``."""
+        with self._lock:
+            self._hub = hub
+            self._hub_prefix = prefix
+            hub.adopt_histogram(f"{prefix}.latency_s", self.latency_hist)
+            for app, h in self._app_hists.items():
+                hub.adopt_histogram(f"{prefix}.latency_s.{app}", h)
+        hub.register_poller(prefix, self._poll)
+
+    def _poll(self) -> dict:
+        with self._lock:
+            occ = dict(self.batch_occupancy)
+            out = dict(
+                submitted=self.submitted, completed=self.completed,
+                memo_hits=self.memo_hits, rejected=self.rejected,
+                failed=self.failed, queue_depth=self.queue_depth,
+                queue_peak=self.queue_peak,
+            )
+        batches = sum(occ.values())
+        out["batches"] = batches
+        out["mean_occupancy"] = (sum(k * v for k, v in occ.items()) / batches
+                                 if batches else 0.0)
+        return out
 
     # -- reading ---------------------------------------------------------
     def occupancy(self) -> dict:
-        """Copy of the {K: batch count} occupancy histogram (diff successive
-        copies for per-window occupancy)."""
+        """Copy of the {K: batch count} occupancy histogram (the adaptive
+        controller diffs successive copies for per-window occupancy)."""
         with self._lock:
             return dict(self.batch_occupancy)
 
@@ -803,8 +839,9 @@ class GraphService:
 
     def reconfigure(self, **changes) -> ServiceConfig:
         """Atomically retune the live batching policy; returns the new
-        config.  Safe mid-traffic: the dispatcher re-reads ``self.config``
-        on every pass, pending requests simply see the new limits on their
+        config.  This is ``AdaptiveServeController``'s write path, and it
+        is safe mid-traffic: the dispatcher re-reads ``self.config`` on
+        every pass, pending requests simply see the new limits on their
         next evaluation, and in-flight sweeps are untouched.
 
         Only ``RECONFIGURABLE`` fields may change (``max_inflight`` sizes
@@ -830,10 +867,12 @@ class GraphService:
             return self.config
 
     def attach_hub(self, hub, prefix: str = "serve"):
-        """Wiring the stats into a telemetry hub comes with the hub."""
-        raise NotImplementedError(
-            "attach_hub (telemetry) is not ported to repro_torch yet "
-            "(ROADMAP A8); the repro package has it")
+        """Wire this service's stats into a ``MetricsHub``: the latency
+        reservoirs are shared (adopted) and the counters exported as a
+        poller, so every emitted snapshot carries serving state.  Returns
+        ``hub`` for chaining."""
+        self.stats.attach_hub(hub, prefix)
+        return hub
 
     def close(self, drain: bool = True, timeout: float | None = None) -> None:
         """Stop accepting work and shut down.

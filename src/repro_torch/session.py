@@ -98,11 +98,6 @@ _BATCH_PARAMS = {
 }
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP {item}); the repro package has it")
-
-
 def _resolve_source(store, backend: str | None):
     """Turn (path, backend) into a ShardSource; pass storage objects through."""
     if not isinstance(store, (str, os.PathLike)):
@@ -592,10 +587,6 @@ class GraphSession:
         return eng.run(max_iters=max_iters, program=run_program,
                        init_state=(np.array(prev.values), active))
 
-    # -- surfaces of the reference session not ported yet ---------------
-    def attach_hub(self, *args, **kwargs):
-        raise _not_ported("attach_hub (telemetry)", "A8")
-
     # -- observability / lifecycle --------------------------------------
     @property
     def stats(self):
@@ -610,6 +601,52 @@ class GraphSession:
         ``"partitioned"`` with one report per partition when
         ``num_devices > 1``."""
         return self.cache.report()
+
+    def attach_hub(self, hub, prefix: str = "session"):
+        """Wire this session's telemetry into a ``MetricsHub``
+        (``repro_torch.obs``):
+
+        * ``{prefix}.cache.*`` — a poller over ``cache_report()`` (numeric
+          leaves flattened into gauges at each hub sample: tier occupancy,
+          hit/miss/eviction counters, achieved compression ratio; the
+          partitioned cache's per-partition sub-reports flatten too);
+        * ``{prefix}.engine.*`` — an ``iteration_observers`` tap converting
+          every ``IterationStats`` into counters (iterations, disk_bytes,
+          edges_processed, stall/fetch/decode-saved seconds, per-lane
+          ``engine.devN.*`` splits for multi-device runs), gauges (last
+          active_ratio / cache_hit_ratio), and an
+          ``{prefix}.engine.iteration_s`` histogram of sweep durations.
+
+        Engines already built share the observer list by reference, so
+        attaching mid-flight captures every subsequent iteration.  Returns
+        ``hub`` for chaining.
+        """
+        hub.register_poller(f"{prefix}.cache", self.cache_report)
+        iter_hist = hub.histogram(f"{prefix}.engine.iteration_s")
+        eng = f"{prefix}.engine"
+
+        def observe(stats) -> None:
+            hub.counter(f"{eng}.iterations").inc()
+            hub.counter(f"{eng}.disk_bytes").inc(stats.disk_bytes)
+            hub.counter(f"{eng}.edges_processed").inc(stats.edges_processed)
+            hub.counter(f"{eng}.shards_processed").inc(stats.shards_processed)
+            hub.counter(f"{eng}.shards_skipped").inc(stats.shards_skipped)
+            hub.counter(f"{eng}.stall_seconds").inc(stats.stall_seconds)
+            hub.counter(f"{eng}.fetch_seconds").inc(stats.fetch_seconds)
+            hub.counter(f"{eng}.decode_seconds_saved").inc(
+                stats.decode_seconds_saved)
+            hub.gauge(f"{eng}.active_ratio").set(stats.active_ratio)
+            hub.gauge(f"{eng}.cache_hit_ratio").set(stats.cache_hit_ratio)
+            iter_hist.observe(stats.seconds)
+            for d, (db, ds, df) in enumerate(zip(stats.device_disk_bytes,
+                                                 stats.device_stall_seconds,
+                                                 stats.device_fetch_seconds)):
+                hub.counter(f"{eng}.dev{d}.disk_bytes").inc(db)
+                hub.counter(f"{eng}.dev{d}.stall_seconds").inc(ds)
+                hub.counter(f"{eng}.dev{d}.fetch_seconds").inc(df)
+
+        self.iteration_observers.append(observe)
+        return hub
 
     def warm(self) -> int:
         """Pull every shard through the cache once; returns the bytes now

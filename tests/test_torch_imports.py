@@ -1,7 +1,7 @@
 """Boundaries of the port: it imports neither jax nor the reference package
 (the subprocess check; tests that compare the two import both), it runs on
-the CPU only when asked, what it has not ported raises, and the surfaces
-ported since work."""
+the CPU only when asked, and the surfaces ported since the first slice
+work."""
 import subprocess
 import sys
 from pathlib import Path
@@ -26,6 +26,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.graph.pack, repro_torch.graph.compact\n"
         "import repro_torch.core.apps, repro_torch.baselines\n"
         "import repro_torch.baselines.esg, repro_torch.baselines.psw\n"
+        "import repro_torch.obs, repro_torch.obs.controller\n"
+        "import repro_torch.obs.trace, repro_torch.serve.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -62,19 +64,36 @@ def test_config_validation_and_env(monkeypatch):
     assert (cfg.use_kernel, cfg.prefetch_depth) == (False, 3)
 
 
-def _service_attach_hub(s):
+def _service_attach_hub(s, hub):
     with s.service() as svc:
-        svc.attach_hub(None)
+        assert svc.attach_hub(hub) is hub
+        svc.submit("bfs", source=1, max_iters=3).result(timeout=60)
+    return "serve"
+
+
+def _session_attach_hub(s, hub):
+    assert s.attach_hub(hub) is hub
+    s.run("bfs", source=1, max_iters=3)
+    return "session"
 
 
 @pytest.mark.parametrize("call,item", [
     (_service_attach_hub, "A8"),
-    (lambda s: s.attach_hub(None), "A8"),
+    (_session_attach_hub, "A8"),
 ])
 def test_unported_session_surfaces_raise(graph_store, call, item):
+    """The surfaces that raised until the telemetry hub (ROADMAP ``item``)
+    was ported now work: ``attach_hub`` returns the hub, and its next
+    snapshot carries the attached layer's metrics (held against the
+    reference in tests/test_torch_obs.py)."""
+    from repro_torch.obs import MetricsHub, validate_snapshot
     with GraphSession(str(graph_store.path), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match=item):
-            call(s)
+        hub = MetricsHub()
+        prefix = call(s, hub)
+    snap = hub.sample()
+    validate_snapshot(snap)
+    assert any(k.startswith(f"{prefix}.") for k in snap["gauges"])
+    assert any(k.startswith(f"{prefix}.") for k in snap["histograms"])
 
 
 def test_app_zoo_is_ported(graph_store):

@@ -266,15 +266,20 @@ def test_reconfigure_and_warmup(graph_store, ref_solo):
 
 
 def test_unported_service_surfaces_raise(graph_store):
+    from repro_torch.obs import MetricsHub
     with _session(graph_store) as sess:
         with sess.service() as svc:
-            with pytest.raises(NotImplementedError, match="A8"):
-                svc.attach_hub(None)
+            # the telemetry hub is ported: attach_hub wires the stats in
+            hub = MetricsHub()
+            assert svc.attach_hub(hub) is hub
             # a frozen session refuses a commit, as the reference's does
             with pytest.raises(TypeError, match="mutable=True"):
                 svc.apply_mutations(inserts=[(0, 1)])
             # the barrier lifted: the service still serves
             svc.submit("bfs", source=1, max_iters=3).result(timeout=60)
+    snap = hub.sample()
+    assert snap["gauges"]["serve.completed"] == 1.0
+    assert snap["histograms"]["serve.latency_s.bfs"]["count"] == 1
 
 
 def test_service_apply_mutations_commits(graph_store, tmp_path):
