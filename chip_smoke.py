@@ -105,6 +105,19 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    subprocess, all four digests equal; every metrics file passes
    ``python -m repro_torch.obs``.  The phase's launches must equal the
    shards its kernel sessions processed.
+11. LLM serving — (a) ``Model(get_config("gemma-2b"))`` at its published
+   width in bf16 on the card (weights from ``torch.Generator`` seed 0),
+   ``ServeEngine.generate`` on ``LLM_BATCH`` (8) prompts of ``LLM_PROMPT``
+   (128) tokens (numpy seed 0), ``LLM_TOKENS`` (32) greedy tokens each:
+   prefill seconds, decode tokens/s and ms a step beside the step's bound
+   (weight and KV bytes at 3.35 TB/s), peak memory, and a profile of
+   ``LLM_PROFILE_STEPS`` decode steps (device ops and busy time a step);
+   (b) the same model in float32 at batch 2: the prefill's and 4 decode
+   steps' logits against the teacher-forced forward, to ``LLM_F32_ATOL`` +
+   ``LLM_F32_RTOL``; (c) every architecture at ``reduced()`` size in
+   float32, the same weights on the card and on the CPU: prefill and 4
+   decode steps' logits to ``LLM_CARD_CPU_TOL``, 8 greedy tokens equal
+   (but after a near tie).  The phase launches no SpMV kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -159,6 +172,21 @@ TRACE_SECONDS = 12.0           # phase 10: the scale-22 trace's length
 SMALL_EVENTS = 32              # phase 10 (d): the trace the cpu session
 SMALL_SPEED = 2.0              # replays too (events expected), its speed-up
 TILE_WIDTH = 128               # ELL width of the 2-D tiles
+BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16
+LLM_ARCH = "gemma-2b"          # phase 11: served at its published width
+LLM_BATCH = 8                  # requests
+LLM_PROMPT = 128               # prompt tokens each
+LLM_TOKENS = 32                # greedy tokens each
+LLM_PROFILE_STEPS = 4          # decode steps under torch.profiler
+LLM_F32_BATCH = 2              # (b): the float32 copy's batch
+LLM_F32_STEPS = 4              # decode steps after the prefill, compared
+# float32 with TF32 off: prefill (a GEMM over the prompt) and decode (one
+# row) sum the same products in another order, through 18 layers
+LLM_F32_ATOL = 1e-3
+LLM_F32_RTOL = 1e-3
+# (c): the same reduced model on the card and on the CPU, float32
+LLM_CARD_CPU_TOL = 1e-4        # atol and rtol
+LLM_MARGIN = 1e-4              # a top-two logit gap below it is a near tie
 
 
 def log(msg: str) -> None:
@@ -2333,6 +2361,244 @@ def small_replays(tmp: Path, big_trace, qps: float, slo_ms: float,
         f"and CLI replays equal ({digests['cli'][:16]})")
 
 
+# --------------------------------------------------------------------------
+# phase 11: LLM serving
+# --------------------------------------------------------------------------
+def _near_tie_or_equal(torch, model, batch: dict, got, want,
+                       what: str) -> None:
+    """``got`` must equal ``want`` (greedy tokens [B, T]), except from a
+    step where ``model``'s own top two logits are closer than
+    ``LLM_MARGIN`` (either token is right there)."""
+    import numpy as np
+    if np.array_equal(got, want):
+        return
+    full = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+    full["tokens"] = torch.cat(
+        [full["tokens"].long(), torch.as_tensor(want[:, :-1]).long().to(
+            model.device)], dim=1)
+    if "positions" in full:  # the VLM stub: patches, then the tokens
+        n = full["tokens"].shape[1] + model.cfg.img_patches
+        full["positions"] = torch.arange(n, device=model.device)[
+            None, :, None].expand(got.shape[0], n, 3)
+    with torch.inference_mode():
+        logits, _ = model(full)
+    top2 = logits[:, -want.shape[1]:].topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    for row in range(got.shape[0]):
+        differ = np.flatnonzero(got[row] != want[row])
+        if differ.size:
+            step = differ[0]
+            check(margins[row, step] < LLM_MARGIN,
+                  f"{what}: row {row} differs at step {step} (margin "
+                  f"{margins[row, step]:.3g}): {got[row]} vs {want[row]}")
+    log(f"llm: {what}: tokens differ only after near ties (< {LLM_MARGIN})")
+
+
+def llm_full_width(torch, card: str) -> dict:
+    """(a) gemma-2b at its published width in bf16: ``ServeEngine.generate``
+    on LLM_BATCH prompts of LLM_PROMPT tokens, LLM_TOKENS greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.model import Model, padded_vocab
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(LLM_ARCH)
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model)
+    batch = make_batch(cfg, LLM_BATCH, LLM_PROMPT, seed=0)
+    warm, _ = engine.generate(batch, num_tokens=2)  # cuBLAS plans, caches
+    torch.cuda.reset_peak_memory_stats()
+    toks, stats = engine.generate(batch, num_tokens=LLM_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
+    check(toks.shape == (LLM_BATCH, LLM_TOKENS) and toks.min() >= 0
+          and toks.max() < padded_vocab(cfg),
+          f"llm: gemma-2b tokens {toks.shape} in [{toks.min()}, "
+          f"{toks.max()}]")
+    check(np.array_equal(toks[:, :2], warm),
+          "llm: gemma-2b's first two greedy tokens differ between runs")
+    params = model.param_count()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = (2 * cfg.num_layers * LLM_BATCH * (LLM_PROMPT + LLM_TOKENS)
+          * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    steps = LLM_TOKENS - 1
+    out = {
+        "params": params, "weight_bytes": weights, "init_s": init_s,
+        "prefill_s": stats.prefill_seconds,
+        "decode_tok_s": stats.tokens_per_second,
+        "ms_per_step": stats.decode_seconds / steps * 1e3,
+        "bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3,
+        "ops_bound_ms": 2 * params * LLM_BATCH / BF16_FLOPS * 1e3,
+        "peak_gb": (peak - held) / 1e9,
+    }
+    log(f"llm: gemma-2b bf16 ({params:,} params, {weights:,} weight bytes, "
+        f"built in {init_s:.2f}s): B={LLM_BATCH} prompt={LLM_PROMPT} "
+        f"tokens={LLM_TOKENS}: prefill {out['prefill_s']:.4f}s, decode "
+        f"{out['decode_tok_s']:.1f} tok/s = {out['ms_per_step']:.3f} ms a "
+        f"step over {steps} steps (bound {out['bound_ms']:.3f} ms: weights "
+        f"+ {kv:,} KV bytes at 3.35 TB/s; operations "
+        f"{out['ops_bound_ms']:.4f} ms), peak memory {out['peak_gb']:.3f} "
+        f"GB above the {held / 1e9:.3f} GB held before the model; {card}")
+    out.update(profile_decode(torch, model, batch, out["ms_per_step"]))
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_decode(torch, model, batch: dict, ms_per_step: float) -> dict:
+    """LLM_PROFILE_STEPS greedy decode steps after a prefill, under
+    torch.profiler: the kernels a step launches and the device's busy time
+    a step, against the step's unprofiled time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        tokens = torch.as_tensor(batch["tokens"]).long().cuda()
+        logits, caches, _ = model.prefill(
+            {"tokens": tokens}, cache_len=LLM_PROMPT + LLM_PROFILE_STEPS)
+        tok = logits[:, 0].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(LLM_PROFILE_STEPS):
+                    logits, caches = model.decode_step(caches, tok,
+                                                       LLM_PROMPT + i)
+                    tok = logits[:, 0].argmax(-1)[:, None]
+                torch.cuda.synchronize()
+    device = [(e.self_device_time_total, e.key, e.count)
+              for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(d[0] for d in device) / 1e3 / LLM_PROFILE_STEPS
+    kernels = sum(d[2] for d in device) / LLM_PROFILE_STEPS
+    log(f"llm: profile of {LLM_PROFILE_STEPS} decode steps: "
+        f"{kernels:.0f} device ops a step, device busy {busy_ms:.3f} ms a "
+        f"step = {busy_ms / ms_per_step:.3f} of the unprofiled step")
+    for us, key, count in sorted(device, reverse=True)[:6]:
+        log(f"llm:   {us / 1e3 / LLM_PROFILE_STEPS:8.3f} ms a step  "
+            f"x{count // LLM_PROFILE_STEPS:<5d} {key[:90]}")
+    return {"device_ms_per_step": busy_ms, "ops_per_step": kernels}
+
+
+def llm_float32_decode(torch) -> float:
+    """(b) gemma-2b at full width in float32: prefill, then LLM_F32_STEPS
+    decode steps, each step's logits against the teacher-forced forward's
+    at the same position.  Returns the largest difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(LLM_ARCH), dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    batch = make_batch(cfg, LLM_F32_BATCH, LLM_PROMPT + LLM_F32_STEPS, seed=0)
+    tokens = torch.as_tensor(batch["tokens"]).long().cuda()
+    P = LLM_PROMPT
+    worst = 0.0
+    with torch.inference_mode():
+        ref, _ = model({"tokens": tokens})
+        logits, caches, _ = model.prefill({"tokens": tokens[:, :P]},
+                                          cache_len=P + LLM_F32_STEPS)
+        steps = [logits[:, 0]]
+        for i in range(LLM_F32_STEPS):
+            logits, caches = model.decode_step(caches,
+                                               tokens[:, P + i:P + i + 1],
+                                               P + i)
+            steps.append(logits[:, 0])
+        for i, got in enumerate(steps):
+            want = ref[:, P - 1 + i]
+            err = (got - want).abs()
+            bad = err > LLM_F32_ATOL + LLM_F32_RTOL * want.abs()
+            worst = max(worst, float(err.max()))
+            check(torch.isfinite(got).all().item() and not bad.any().item(),
+                  f"llm: gemma-2b float32 step {i} (0: prefill): max "
+                  f"|decode - forward| "
+                  f"{float(err.max()):.3g} beyond atol {LLM_F32_ATOL} + rtol "
+                  f"{LLM_F32_RTOL}")
+    log(f"llm: gemma-2b float32 B={LLM_F32_BATCH}: prefill + "
+        f"{LLM_F32_STEPS} decode steps equal the teacher-forced forward "
+        f"(max |diff| {worst:.3g}, |logit| up to {float(ref.abs().max()):.3g};"
+        f" atol {LLM_F32_ATOL}, rtol {LLM_F32_RTOL})")
+    del model, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def llm_card_vs_cpu(torch) -> dict:
+    """(c) Every architecture at ``reduced()`` size in float32, the same
+    weights on the card and on the CPU: prefill logits, LLM_F32_STEPS
+    decode steps' logits and 8 greedy tokens, to LLM_CARD_CPU_TOL."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        extra = cfg.img_patches if cfg.modality_stub == "image_patches" else 0
+        cpu = Model(cfg, device="cpu", seed=0)
+        card = Model(cfg, device="meta").to_empty(device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        batch = make_batch(cfg, 2, 16 + LLM_F32_STEPS, seed=0)
+        if extra:
+            batch["positions"] = batch["positions"][:, :16 + extra]
+        logits = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            dev = model.device
+            b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            b["tokens"] = b["tokens"].long()
+            pre = dict(b, tokens=b["tokens"][:, :16])
+            with torch.inference_mode():
+                out, caches, enc = model.prefill(
+                    pre, cache_len=16 + extra + LLM_F32_STEPS)
+                seq = [out[:, 0]]
+                for i in range(LLM_F32_STEPS):
+                    out, caches = model.decode_step(
+                        caches, b["tokens"][:, 16 + i:17 + i], 16 + extra + i,
+                        enc_out=enc)
+                    seq.append(out[:, 0])
+            logits[name] = torch.stack(seq, 1).cpu().numpy()
+        err = np.abs(logits["cuda"] - logits["cpu"])
+        bound = LLM_CARD_CPU_TOL * (1 + np.abs(logits["cpu"]))
+        check(np.isfinite(logits["cuda"]).all() and (err <= bound).all(),
+              f"llm: {arch} reduced: max |cuda - cpu| {err.max():.3g}")
+        prompt = dict(batch, tokens=batch["tokens"][:, :16])
+        toks = {name: ServeEngine(model, device=model.device).generate(
+            prompt, num_tokens=8)[0] for name, model in (("cpu", cpu),
+                                                         ("cuda", card))}
+        _near_tie_or_equal(torch, cpu, prompt, toks["cuda"], toks["cpu"],
+                           f"{arch} reduced greedy")
+        worst[arch] = float(err.max())
+    log("llm: reduced configs, cuda vs cpu, prefill + "
+        f"{LLM_F32_STEPS} decode steps (max |diff|, tolerance "
+        f"{LLM_CARD_CPU_TOL} abs and rel): "
+        + ", ".join(f"{a} {e:.3g}" for a, e in worst.items())
+        + "; 8 greedy tokens equal")
+    return worst
+
+
+def phase_llm(torch, card: str) -> dict:
+    """Phase 11: the LLM serving path.  It must launch no SpMV kernel."""
+    from repro_torch.kernels.spmv import cuda
+
+    before = dict(cuda.launches)
+    out = llm_full_width(torch, card)
+    out["f32_max_diff"] = llm_float32_decode(torch)
+    out["reduced_max_diff"] = llm_card_vs_cpu(torch)
+    check(dict(cuda.launches) == before,
+          f"llm: SpMV launches moved: {before} -> {dict(cuda.launches)}")
+    log("llm: no SpMV kernel launched")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -2408,6 +2674,10 @@ def main() -> int:
                                              bfs_seconds, tmp, card)
         log(f"telemetry: all checks passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_llm(torch, card)
+        log(f"llm: all checks passed in {time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)

@@ -28,6 +28,11 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.baselines.esg, repro_torch.baselines.psw\n"
         "import repro_torch.obs, repro_torch.obs.controller\n"
         "import repro_torch.obs.trace, repro_torch.serve.bench\n"
+        "import repro_torch.configs, repro_torch.models.model\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.xlstm, repro_torch.models.convert\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "from repro_torch.serve import ServeEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
