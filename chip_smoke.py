@@ -118,6 +118,27 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    float32, the same weights on the card and on the CPU: prefill and 4
    decode steps' logits to ``LLM_CARD_CPU_TOL``, 8 greedy tokens equal
    (but after a near tie).  The phase launches no SpMV kernel.
+12. LLM training — (a) ``Model(get_config("gemma-2b"))`` at its published
+   width and depth in bf16 (``torch.Generator`` seed 0), AdamW with float32
+   masters and remat (policy "nothing"), ``TRAIN_STEPS`` (10) steps of B =
+   ``TRAIN_BATCH`` (4) x S = ``TRAIN_SEQ`` (512) tokens cycling over two
+   ``SyntheticLM`` batches (seed 0): every loss finite and the last below
+   the first; the median step time, tokens/s and the share of the step's
+   FLOP bound (8 N T with remat at 989 TFLOP/s), ``apply_updates``'s time
+   (CUDA events) against its byte bound (float32 m, v and master read and
+   written, bf16 grads read, bf16 params written, at 3.35 TB/s), peak
+   memory above what earlier phases hold, and a profile of one step
+   (device ops, busy ms and share); (b) every architecture at
+   ``reduced()`` size in float32, the same weights on the card and on the
+   CPU, one AdamW step each, then stablelm-1.6b with Adafactor, with int8
+   error feedback and with ``remat_policy="dots"``: the loss, every
+   gradient, the grad norm and every parameter after the optimizer step
+   (on the CPU's gradients) to ``TRAIN_CARD_CPU_TOL``; (c)
+   stablelm-1.6b reduced in bf16, ten steps in one go against five, a
+   save, a restore into a fresh state and five more: losses to
+   ``TRAIN_RESUME_RTOL``; (d) ``python -m repro_torch.launch.train`` on the
+   card, killed with SIGTERM after its first checkpoint and resumed to
+   its 40th step, final loss below 7.0.  The phase launches no SpMV kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -187,6 +208,17 @@ LLM_F32_RTOL = 1e-3
 # (c): the same reduced model on the card and on the CPU, float32
 LLM_CARD_CPU_TOL = 1e-4        # atol and rtol
 LLM_MARGIN = 1e-4              # a top-two logit gap below it is a near tie
+TRAIN_ARCH = "gemma-2b"        # phase 12: trained at its published width
+TRAIN_BATCH = 4                # sequences a step
+TRAIN_SEQ = 512                # tokens each
+TRAIN_STEPS = 10               # steps, cycling over TRAIN_CYCLE batches
+TRAIN_CYCLE = 2
+TRAIN_TIMED_FROM = 2           # the median step time over steps 3..10
+# tests/test_train.py's optimizer settings (AdamW, fp32 masters for bf16)
+TRAIN_OPT = dict(peak_lr=3e-3, warmup_steps=5, decay_steps=200)
+TRAIN_CARD_CPU_TOL = 1e-4      # (b): atol and rtol, float32
+TRAIN_RESUME_RTOL = 1e-5       # (c): tests/test_train.py's own
+TRAIN_KILL_AFTER = 6           # (d): SIGTERM once this step is printed
 
 
 def log(msg: str) -> None:
@@ -2599,6 +2631,333 @@ def phase_llm(torch, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: LLM training
+# --------------------------------------------------------------------------
+def _on(torch, batch: dict, dev) -> dict:
+    """Numpy inputs -> tensors on ``dev`` (ids as int64)."""
+    return {k: torch.as_tensor(v).to(dev).long()
+            if k in ("tokens", "targets", "positions")
+            else torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def train_inputs(cfg, batch: int = 2, seq: int = 16) -> dict:
+    """``seq`` random tokens (numpy seed 0), their next tokens as targets,
+    and the stubs' inputs (``launch.serve.make_batch``)."""
+    from repro_torch.launch.serve import make_batch
+
+    full = make_batch(cfg, batch, seq + 1, seed=0)
+    out = dict(full, tokens=full["tokens"][:, :seq],
+               targets=full["tokens"][:, 1:])
+    if "positions" in out:
+        out["positions"] = out["positions"][:, :seq + cfg.img_patches]
+    return out
+
+
+def train_full_width(torch, card: str) -> dict:
+    """(a) gemma-2b at its published width and depth in bf16, trained
+    with AdamW (float32 masters) and remat for TRAIN_STEPS steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, make_init_state, make_train_step
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = get_config(TRAIN_ARCH)
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda", seed=0)
+    opt = OptConfig(**TRAIN_OPT)
+    state = make_init_state(model, opt)()
+    step = make_train_step(model, opt)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [_on(torch, data.get_batch(i), "cuda")
+               for i in range(TRAIN_CYCLE)]
+    losses, seconds = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % TRAIN_CYCLE])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"train: gemma-2b losses {losses}")
+    params = model.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = float(np.median(seconds[TRAIN_TIMED_FROM:]))
+    flop_bound_ms = 8 * params * tokens / BF16_FLOPS * 1e3
+    # m, v and master read and written (float32), grads read, params
+    # written (bf16)
+    opt_bytes = params * (3 * 2 * 4 + 2 + 2)
+    out = {"params": params, "losses": losses, "step_s": step_s,
+           "tok_s": tokens / step_s, "flop_bound_ms": flop_bound_ms,
+           "flop_share": flop_bound_ms / (step_s * 1e3),
+           "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+           "peak_gb": (peak - held) / 1e9}
+    log(f"train: gemma-2b bf16 ({params:,} params), AdamW + fp32 masters, "
+        f"remat: B={TRAIN_BATCH} S={TRAIN_SEQ}, {TRAIN_STEPS} steps over "
+        f"{TRAIN_CYCLE} batches: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"step {step_s * 1e3:.1f} ms (median of steps "
+        f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS}; first "
+        f"{seconds[0] * 1e3:.1f} ms) = {out['tok_s']:.0f} tok/s; FLOP bound "
+        f"{flop_bound_ms:.2f} ms (8 N T at 989 TFLOP/s) = "
+        f"{out['flop_share']:.3f} of the step; peak memory "
+        f"{out['peak_gb']:.3f} GB above the {held / 1e9:.3f} GB held before "
+        f"the model; {card}")
+    out.update(optimizer_time(torch, model, state, batches[0], opt, out))
+    out.update(profile_train_step(torch, step, state, batches[0], step_s))
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def optimizer_time(torch, model, state, batch, opt, out: dict) -> dict:
+    """One more step by its parts: the loss and backward, then
+    ``apply_updates`` alone between CUDA events, against its byte bound."""
+    from repro_torch.train.optimizer import apply_updates
+    from repro_torch.train.train_step import stacked_grads
+
+    with torch.enable_grad():
+        loss, _ = model.loss_fn(batch)
+        loss.backward()
+    grads = stacked_grads(state.params)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    apply_updates(state.params, grads, state.opt, opt)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    share = out["opt_bound_ms"] / ms
+    log(f"train: apply_updates (AdamW, {len(state.params)} stacked leaves) "
+        f"{ms:.2f} ms against its byte bound {out['opt_bound_ms']:.2f} ms "
+        f"(m, v, master read and written, bf16 grads read and params "
+        f"written at 3.35 TB/s) = {share:.3f}")
+    del grads
+    return {"opt_ms": ms, "opt_share": share}
+
+
+def profile_train_step(torch, step, state, batch, step_s: float) -> dict:
+    """One training step under torch.profiler: device ops, device busy
+    time, and its share of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    device = [(e.self_device_time_total, e.key, e.count)
+              for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(d[0] for d in device) / 1e3
+    ops = sum(d[2] for d in device)
+    # cuBLAS's matmul kernels (nvjet_*, *gemm*), the rest is elementwise,
+    # reductions and copies
+    mm_ms = sum(d[0] for d in device
+                if "nvjet" in d[1] or "gemm" in d[1].lower()) / 1e3
+    log(f"train: profile of one step: {ops} device ops, device busy "
+        f"{busy_ms:.1f} ms = {busy_ms / (step_s * 1e3):.3f} of the "
+        f"unprofiled step; matmul kernels {mm_ms:.1f} ms")
+    for us, key, count in sorted(device, reverse=True)[:8]:
+        log(f"train:   {us / 1e3:8.2f} ms  x{count:<5d} {key[:90]}")
+    return {"device_ms": busy_ms, "device_ops": ops, "matmul_ms": mm_ms}
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """(b) One training step of each reduced architecture in float32, the
+    same weights on the card and on the CPU; then stablelm-1.6b with
+    Adafactor, with int8 error feedback and with remat policy "dots".
+    The loss, every gradient and the gradient norm come from each
+    device's own forward and backward.  The optimizer step then takes the
+    CPU's gradients on both devices: the first AdamW or Adafactor step
+    divides each gradient by its own magnitude, so a gradient within
+    float32 noise of 0 may move its parameter anywhere in +-lr, on either
+    device (stablelm's w_gate: 1.98e-4 apart at lr 6e-4)."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, make_init_state
+    from repro_torch.train.optimizer import apply_updates, clip_by_global_norm
+    from repro_torch.train.train_step import ef_compress_grads, stacked_grads
+
+    cases = [(a, a, {}, {}) for a in ARCH_IDS] + [
+        ("stablelm-1.6b adafactor", "stablelm-1.6b", {"name": "adafactor"},
+         {}),
+        ("stablelm-1.6b int8 ef", "stablelm-1.6b", {},
+         {"grad_compression": True}),
+        ("stablelm-1.6b dots", "stablelm-1.6b", {}, {"remat_policy": "dots"})]
+
+    def close(a, b, scale, what: str) -> float:
+        diff = np.abs(a - b)
+        check(bool((diff <= TRAIN_CARD_CPU_TOL * (scale + np.abs(b))).all()),
+              f"train: {what}: max |cuda - cpu| {diff.max():.3g}")
+        return float(diff.max())
+
+    worst = {}
+    for label, arch, opt_kw, kw in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        model_kw = {k: v for k, v in kw.items() if k == "remat_policy"}
+        gc = kw.get("grad_compression", False)
+        opt = OptConfig(**TRAIN_OPT, **opt_kw)
+        cpu = Model(cfg, device="cpu", seed=0, **model_kw)
+        card = Model(cfg, device="meta", **model_kw).to_empty(device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        batch = train_inputs(cfg)
+        runs = {}
+        for name, model in (("cpu", cpu), ("cuda", card)):
+            state = make_init_state(model, opt, grad_compression=gc)()
+            with torch.enable_grad():
+                loss, _ = model.loss_fn(_on(torch, batch, model.device))
+                loss.backward()
+            grads = stacked_grads(state.params)
+            gnorm = clip_by_global_norm(grads, opt.clip_norm)[1]
+            runs[name] = (model, state, float(loss.detach()), grads,
+                          float(gnorm))
+        cpu_run, card_run = runs["cpu"], runs["cuda"]
+        err = close(card_run[2], cpu_run[2], 1.0, f"{label}: loss")
+        err = max(err, close(card_run[4], cpu_run[4], 1.0,
+                             f"{label}: grad norm"))
+        for leaf, a, b in zip(cpu_run[1].params, card_run[3], cpu_run[3]):
+            b = b.numpy()
+            err = max(err, close(a.cpu().numpy(), b, np.abs(b).max(),
+                                 f"{label}: {leaf.path} gradient"))
+        for model, state, _, _, _ in runs.values():
+            grads = [g.to(model.device) for g in cpu_run[3]]
+            if gc:
+                grads, _ = ef_compress_grads(
+                    grads, [state.ef[leaf.path] for leaf in state.params])
+            apply_updates(state.params, grads, state.opt, opt)
+        after = card.state_dict()
+        for key, want in cpu.state_dict().items():
+            err = max(err, close(after[key].cpu().numpy(), want.numpy(), 1.0,
+                                 f"{label}: {key} after the step"))
+        worst[label] = err
+    log("train: reduced configs in float32 on the card and on the CPU: "
+        "loss, gradients, grad norm, and the parameters after an optimizer "
+        f"step on the same gradients (max |diff|; tolerance "
+        f"{TRAIN_CARD_CPU_TOL} abs and rel, gradients relative to their "
+        "leaf's largest): "
+        + ", ".join(f"{a} {e:.3g}" for a, e in worst.items()))
+    return worst
+
+
+def train_resume(torch, tmp: Path) -> float:
+    """(c) stablelm-1.6b reduced in bf16 on the card: ten steps in one go
+    against five, a save, a restore into a fresh state (another seed) and
+    five more.  Returns the largest relative gap of the last five losses."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, make_init_state, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = get_config("stablelm-1.6b").reduced()
+    opt = OptConfig(**TRAIN_OPT)
+    data = SyntheticLM(cfg.vocab_size, 32, 8)
+    batches = [_on(torch, data.get_batch(i), "cuda") for i in range(4)]
+
+    def run(model, state, start: int, n: int) -> list:
+        step = make_train_step(model, opt)  # updates ``state`` in place
+        losses = []
+        for i in range(start, start + n):
+            _, metrics = step(state, batches[i % 4])
+            losses.append(float(metrics["loss"]))
+        return losses
+
+    model = Model(cfg, device="cuda", seed=0)
+    straight = run(model, make_init_state(model, opt)(), 0, 10)
+    model = Model(cfg, device="cuda", seed=0)
+    state = make_init_state(model, opt)()
+    first = run(model, state, 0, 5)
+    ck = CheckpointManager(tmp / "resume")
+    ck.save(5, state, sync=True)
+    ck.close()
+    fresh = Model(cfg, device="cuda", seed=1)
+    restored, at = CheckpointManager(tmp / "resume").restore(
+        make_init_state(fresh, opt)())
+    check(at == 5 and int(restored.step) == 5, f"train: restored step {at}")
+    resumed = first + run(fresh, restored, 5, 5)
+    gap = float(np.max(np.abs(np.array(resumed) - straight)
+                       / np.abs(straight)))
+    check(gap <= TRAIN_RESUME_RTOL,
+          f"train: resumed losses {resumed} vs {straight} (max rel gap "
+          f"{gap:.3g} > {TRAIN_RESUME_RTOL})")
+    log(f"train: stablelm-1.6b reduced bf16 on the card: 5 steps + save + "
+        f"restore into a fresh model + 5 steps equal 10 straight steps "
+        f"(max rel gap {gap:.3g}, tolerance {TRAIN_RESUME_RTOL})")
+    return gap
+
+
+def train_kill_resume(tmp: Path) -> float:
+    """(d) ``python -m repro_torch.launch.train`` on the card, SIGTERM once
+    step TRAIN_KILL_AFTER is printed (after the first checkpoint), then
+    ``--resume`` to the 40th step.  Returns the final loss."""
+    import signal
+
+    ck = tmp / "kill"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "stablelm-1.6b", "--reduced", "--steps", "40", "--batch", "4",
+           "--seq", "32", "--ckpt-dir", str(ck), "--ckpt-every", "5",
+           "--lr", "3e-3"]
+    proc = subprocess.Popen(cmd + ["--log-every", "1"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=_src_env())
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(f"step {TRAIN_KILL_AFTER} "):
+                proc.send_signal(signal.SIGTERM)
+                break
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out = "".join(lines) + out
+    check(proc.returncode == 0 and "signal received: emergency checkpoint "
+          "at" in out, f"train: killed run rc {proc.returncode}: "
+          f"{out[-1000:]} {err[-2000:]}")
+    killed_at = int(out.split("emergency checkpoint at")[1].split()[0])
+    r = subprocess.run(cmd + ["--resume", "--log-every", "10"],
+                       capture_output=True, text=True, timeout=300,
+                       env=_src_env())
+    check(r.returncode == 0 and f"resumed from step {killed_at}" in r.stdout
+          and "done: 40 steps" in r.stdout,
+          f"train: resumed run rc {r.returncode}: {r.stdout[-1000:]} "
+          f"{r.stderr[-2000:]}")
+    final = float(r.stdout.strip().splitlines()[-1].split()[-1])
+    check(final < 7.0, f"train: final loss {final} after kill and resume")
+    log(f"train: launch.train on the card killed at step {killed_at} "
+        f"(SIGTERM after step {TRAIN_KILL_AFTER}), resumed to 40: final loss "
+        f"{final:.4f}")
+    return final
+
+
+def phase_train(torch, card: str, tmp: Path) -> dict:
+    """Phase 12: the LLM training path.  It must launch no SpMV kernel."""
+    from repro_torch.kernels.spmv import cuda
+
+    before = dict(cuda.launches)
+    out = train_full_width(torch, card)
+    out["card_cpu_max_diff"] = train_card_vs_cpu(torch)
+    out["resume_gap"] = train_resume(torch, tmp)
+    out["kill_resume_loss"] = train_kill_resume(tmp)
+    check(dict(cuda.launches) == before,
+          f"train: SpMV launches moved: {before} -> {dict(cuda.launches)}")
+    log("train: no SpMV kernel launched")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -2678,6 +3037,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_llm(torch, card)
         log(f"llm: all checks passed in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_train(torch, card, tmp)
+        log(f"train: all checks passed in {time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)

@@ -1,2 +1,2 @@
 """Command-line entry points of the LLM stack (``python -m
-repro_torch.launch.serve``)."""
+repro_torch.launch.serve`` and ``python -m repro_torch.launch.train``)."""

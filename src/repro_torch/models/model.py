@@ -15,17 +15,27 @@ Examples:
   xlstm-1.3b      [(mlstm x7, slstm), 6]
   seamless        encoder [(attn+ffn,), 24] + decoder [(attn+xattn+ffn,), 24]
 
-Modes: ``forward`` (teacher-forced logits), ``prefill`` (fill caches,
-last-position logits) and ``decode_step`` (one token against the caches
-and states, updated in place).  Logits are float32 over the padded vocab.
+Modes: ``loss_fn`` (training: the masked next-token loss), ``forward``
+(teacher-forced logits), ``prefill`` (fill caches, last-position logits)
+and ``decode_step`` (one token against the caches and states, updated in
+place).  Logits are float32 over the padded vocab.
+
+Training recomputes each reference *unit* (one block for gemma, the
+8-block unit for jamba and xlstm) in the backward pass when ``remat`` is
+on, as the reference's ``jax.checkpoint`` of its scan body does; remat
+changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
@@ -142,7 +152,8 @@ def _init_cache_block(desc, cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def _apply_block(p: Block, x, positions, cfg: ArchConfig, *, cache,
-                 cache_index, enc_out, causal, ssm_dtype: str = "float32"):
+                 cache_index, enc_out, causal, ssm_dtype: str = "float32",
+                 unroll: bool = False):
     mixer, ffn = p.desc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(x, p.norm1, cfg.norm_type)
@@ -152,8 +163,10 @@ def _apply_block(p: Block, x, positions, cfg: ArchConfig, *, cache,
             cache=None if cache is None else cache["attn"],
             cache_index=cache_index)
     elif mixer == "mamba":
+        # unroll: one full-sequence chunk (the reference's roofline mode)
         a, st = mamba_apply(p.mamba, h, cfg.mamba,
                             state=None if cache is None else cache["mamba"],
+                            chunk=x.shape[1] if unroll else 256,
                             scan_dtype=ssm_dtype)
     elif mixer == "mlstm":
         a, st = mlstm_apply(p.mlstm, h, cfg.num_heads, cfg.xlstm,
@@ -179,22 +192,52 @@ def _apply_block(p: Block, x, positions, cfg: ArchConfig, *, cache,
     return x, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of matmuls without batch
+    dimensions (``jax.checkpoint_policies.dots_with_no_batch_dims_
+    saveable``); recompute everything else, batched matmuls included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots),
+}
+
+
 # --------------------------------------------------------------------------
 # model
 # --------------------------------------------------------------------------
 class Model(nn.Module):
-    """All ten architectures' serving path on one device.
+    """All ten architectures on one device: training and serving.
 
     ``device=None`` means ``"cuda"`` (raising when there is no GPU);
     ``device="meta"`` allocates nothing (``param_count``).  Parameters are
-    drawn from a ``torch.Generator`` seeded by ``seed``.
+    drawn from a ``torch.Generator`` seeded by ``seed``.  The training
+    knobs are the reference's: ``remat`` recomputes each unit in the
+    backward pass, keeping nothing (``remat_policy="nothing"``) or the
+    matmul outputs (``"dots"``); ``unroll`` scans Mamba's whole sequence
+    as one chunk; ``long_context`` (the reference's KV-sequence sharding)
+    needs a mesh and changes nothing on one device.
     """
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
-                 ssm_dtype: str = "float32"):
+                 ssm_dtype: str = "float32", remat: bool = True,
+                 remat_policy: str = "nothing", unroll: bool = False,
+                 long_context: bool = False):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: expected one "
+                             f"of {sorted(REMAT_POLICIES)}")
         self.cfg = cfg
         self.ssm_dtype = ssm_dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.unroll = unroll
+        self.long_context = long_context
         dev = resolve_device("cuda" if device is None else device)
         init = Init(dev, seed)
         dtype = self.dtype
@@ -230,14 +273,28 @@ class Model(nn.Module):
         """-> (x, aux loss summed over the MoE layers).  ``caches`` (one
         dict per layer) are filled or updated in place."""
         layers = self.enc_layers if encoder else self.layers
+
+        def run_unit(first: int, count: int, x, aux_total):
+            for i in range(first, first + count):
+                x, aux = _apply_block(
+                    layers[i], x, positions, self.cfg,
+                    cache=None if caches is None else caches[i],
+                    cache_index=cache_index, enc_out=enc_out, causal=causal,
+                    ssm_dtype=self.ssm_dtype, unroll=self.unroll)
+                aux_total = aux_total + aux
+            return x, aux_total
+
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, block in enumerate(layers):
-            x, aux = _apply_block(
-                block, x, positions, self.cfg,
-                cache=None if caches is None else caches[i],
-                cache_index=cache_index, enc_out=enc_out, causal=causal,
-                ssm_dtype=self.ssm_dtype)
-            aux_total = aux_total + aux
+        if not (self.remat and caches is None and torch.is_grad_enabled()):
+            return run_unit(0, len(layers), x, aux_total)
+        first = 0
+        for unit, repeat in layer_groups(self.cfg, encoder=encoder):
+            for _ in range(repeat):
+                x, aux_total = checkpoint(
+                    run_unit, first, len(unit), x, aux_total,
+                    use_reentrant=False,
+                    context_fn=REMAT_POLICIES[self.remat_policy])
+                first += len(unit)
         return x, aux_total
 
     def _scale_embed(self, x):
@@ -282,6 +339,24 @@ class Model(nn.Module):
         x, positions = self._embed_inputs(batch)
         x, aux = self._run_groups(x, positions, enc_out=enc_out)
         return self._logits(x), aux
+
+    # ---- training --------------------------------------------------------
+    def loss_fn(self, batch: dict):
+        """-> (loss, {"ce", "aux"}): the mean next-token negative log-
+        likelihood over ``targets >= 0``, the log-softmax taken over the
+        padded vocabulary, plus ``0.01 * aux`` for MoE configs.  As in the
+        reference, ``"ce"`` is that total, the aux term included."""
+        logits, aux = self(batch)
+        targets = batch["targets"]
+        if logits.shape[1] != targets.shape[1]:  # vlm: patches prepended
+            logits = logits[:, -targets.shape[1]:]
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, targets.clamp_min(0)[..., None].long())
+        mask = (targets >= 0).float()
+        loss = -(ll[..., 0] * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        if self.cfg.moe is not None:
+            loss = loss + 0.01 * aux
+        return loss, {"ce": loss, "aux": aux}
 
     # ---- serving ---------------------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int) -> list[dict]:

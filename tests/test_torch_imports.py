@@ -32,6 +32,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.models.moe, repro_torch.models.ssm\n"
         "import repro_torch.models.xlstm, repro_torch.models.convert\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.data, repro_torch.launch.train\n"
         "from repro_torch.serve import ServeEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -49,6 +51,22 @@ def test_session_without_device_needs_cuda(graph_store):
         GraphSession(str(graph_store.path))
     with pytest.raises(RuntimeError, match="cuda"):
         GraphSession(str(graph_store.path), device="cuda:0")
+
+
+def test_train_cli_without_device_needs_cuda():
+    """``python -m repro_torch.launch.train`` trains on the GPU unless
+    ``--device cpu`` is given: without a GPU it raises, and trains
+    nothing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "stablelm-1.6b", "--reduced", "--steps", "2", "--batch", "2",
+         "--seq", "8"], capture_output=True, text=True,
+        env={"PYTHONPATH": SRC}, timeout=120)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "step" not in out.stdout
 
 
 def test_use_kernel_true_on_cpu_raises(graph_store):
