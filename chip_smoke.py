@@ -140,6 +140,31 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    card, killed with SIGTERM after its first checkpoint and resumed to
    its 40th step, final loss below 7.0.  The phase launches no SpMV kernel.
 
+13. mesh — a mesh's lanes in one process, all on the one card: (a)
+   ``MESH_ARCH`` (kimi-k2-1t-a32b) at its published width, depth cut to
+   ``MESH_LAYERS`` (2: its dense first layer and one MoE layer), bf16,
+   ``torch.Generator`` seed 0; the forward's logits and aux loss over B =
+   ``MESH_BATCH`` (8) x S = ``MESH_SEQ`` (128) tokens (numpy seed 0)
+   with no mesh and on a (data 2 x model 2) mesh with expert-parallel
+   'a2a', 'replicated' and the serve 2-D layout (the models share one
+   copy of the weights): all finite, the three mesh modes (the same local
+   tokens and capacity, 14 slots an expert: tokens dropped) agree to
+   ``MESH_BF16_TOL``; ms a forward for each, peak memory above what
+   phase 12 leaves, one profiled forward each; (b) the same model with
+   ``long_context`` on (data 4 x model 1): a ``LONG_PROMPT`` (1,024)
+   token prefill at batch 2 into a ``LONG_CACHE`` (1,152) slot cache,
+   then ``LONG_STEPS`` (16) greedy steps through ``flash_decode_sharded``
+   and the same steps with no mesh (the no-mesh run's tokens fed to
+   both): logits to ``MESH_BF16_TOL``, greedy tokens equal but after a
+   near tie, ms a step for each; (c) every architecture at ``reduced()``
+   size in float32 on 2 x 2 lanes, on the card and on the CPU with the
+   same weights: forward logits and one ``loss_fn`` backward's gradients
+   to ``MESH_CARD_CPU_TOL``, the MoE archs in each EP mode and kimi with
+   capacity factor 1.0, gemma-2b's prefill and decode with its KV head
+   repeated to 2; (d) ``python -m repro_torch.launch.train --mesh 2x2``
+   with the four lanes on the card, ``MESH_CLI_STEPS`` steps, its loss
+   falling.  The phase launches no SpMV kernel.
+
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
 """
@@ -219,6 +244,22 @@ TRAIN_OPT = dict(peak_lr=3e-3, warmup_steps=5, decay_steps=200)
 TRAIN_CARD_CPU_TOL = 1e-4      # (b): atol and rtol, float32
 TRAIN_RESUME_RTOL = 1e-5       # (c): tests/test_train.py's own
 TRAIN_KILL_AFTER = 6           # (d): SIGTERM once this step is printed
+MESH_ARCH = "kimi-k2-1t-a32b"  # phase 13: at its published width
+MESH_LAYERS = 2                # depth cut from 61: the dense layer, one MoE
+MESH_BATCH, MESH_SEQ = 8, 128  # (a): T = 1024, T_local = 512 on data = 2
+MESH_TIMED = 3                 # (a): forwards timed a mode, after one warm
+# bf16: two computations of one forward or decode that round different
+# intermediates (the EP modes' combine and split ff sums; one softmax a
+# lane against one over the cache, so every attention probability rounds
+# to bf16 another way).  Each stays within about 0.05 of the float32
+# computation on the same bf16 weights at |logits| up to about 4 (the
+# CPU, widths 64 to 2,048); two of them within twice that, plus a bf16
+# ulp of the logit
+MESH_BF16_TOL = dict(atol=0.125, rtol=2 ** -7)
+LONG_BATCH, LONG_PROMPT = 2, 1024  # (b): prefill, then LONG_STEPS greedy
+LONG_CACHE, LONG_STEPS = 1152, 16  # steps; 1152 = 4 lanes x 288 slots
+MESH_CARD_CPU_TOL = 1e-4       # (c): atol and rtol, float32 (phase 12's)
+MESH_CLI_STEPS = 8             # (d)
 
 
 def log(msg: str) -> None:
@@ -2958,6 +2999,301 @@ def phase_train(torch, card: str, tmp: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the mesh
+# --------------------------------------------------------------------------
+def lane_mesh(dev, shape: tuple, axes=("data", "model")):
+    """A mesh whose lanes all sit on ``dev``."""
+    import math
+
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=[dev] * math.prod(shape))
+
+
+def sharing(torch, model, cfg, ctx, **kw):
+    """A ``Model`` on ``ctx`` whose parameters are ``model``'s own
+    tensors (no copy)."""
+    from repro_torch.models.model import Model
+
+    other = Model(cfg, ctx=ctx, device="meta", **kw)
+    other.load_state_dict(model.state_dict(), assign=True)
+    return other
+
+
+def _close(torch, got, want, tol: dict, what: str) -> float:
+    err = (got.float() - want.float()).abs()
+    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+          f"mesh: {what}: max |diff| {float(err.max()):.3g} beyond atol "
+          f"{tol['atol']} + rtol {tol['rtol']:.3g}")
+    return float(err.max())
+
+
+def profile_forward(torch, run) -> tuple[float, float]:
+    """(device ops, device busy ms) of one ``run()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    device = [(e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    return sum(d[1] for d in device), sum(d[0] for d in device) / 1e3
+
+
+def mesh_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS)
+
+
+def mesh_full_width(torch, card: str, dev) -> tuple:
+    """(a) kimi-k2 at full width, two layers: the forward with no mesh and
+    in the three EP modes on (data 2 x model 2) lanes of one card.
+    Returns (numbers, the no-mesh model)."""
+    import numpy as np
+
+    from repro_torch.dist.context import make_rules
+    from repro_torch.models.model import Model
+
+    cfg = mesh_config()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = base.param_count()
+    mesh = lane_mesh(dev, (2, 2))
+    models = {"no mesh": base}
+    for mode, kw in (("a2a", {}), ("replicated", {"ep_mode": "replicated"}),
+                     ("serve 2-D", {"serve_fsdp": False})):
+        models[mode] = sharing(torch, base, cfg, make_rules(mesh, cfg, **kw))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ))).long().to(dev)
+    out, ms, prof = {}, {}, {}
+    with torch.inference_mode():
+        for mode, model in models.items():
+            model({"tokens": tokens})  # warm: cuBLAS plans
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(MESH_TIMED):
+                t0 = time.perf_counter()
+                logits, aux = model({"tokens": tokens})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all())
+                  and bool(torch.isfinite(aux)),
+                  f"mesh: kimi {mode}: logits or aux not finite")
+            out[mode] = (logits, float(aux))
+            ms[mode] = float(np.median(times)) * 1e3
+            prof[mode] = profile_forward(
+                torch, lambda m=model: m({"tokens": tokens}))
+    peak = torch.cuda.max_memory_allocated()
+    want = out["a2a"][0]
+    diffs = {m: _close(torch, out[m][0], want, MESH_BF16_TOL,
+                       f"kimi {m} against a2a")
+             for m in ("replicated", "serve 2-D")}
+    log(f"mesh: {MESH_ARCH} bf16 at full width, {MESH_LAYERS} layers "
+        f"({params:,} params, {params * 2 / 1e9:.1f} GB, built in "
+        f"{init_s:.2f}s), B={MESH_BATCH} S={MESH_SEQ}, mesh {mesh}: "
+        f"peak memory {(peak - held) / 1e9:.3f} GB above the "
+        f"{held / 1e9:.3f} GB held before; {card}")
+    for mode in models:
+        log(f"mesh:   {mode:<10s} {ms[mode]:9.3f} ms a forward (median of "
+            f"{MESH_TIMED}); aux {out[mode][1]:.6f}; profiled: "
+            f"{prof[mode][0]} device ops, device busy {prof[mode][1]:.3f} "
+            f"ms" + (f"; max |logit - a2a| {diffs[mode]:.3g}"
+                     if mode in diffs else ""))
+    result = {"params": params, "init_s": init_s, "ms": ms,
+              "peak_gb": (peak - held) / 1e9, "profile": prof,
+              "max_diff": diffs}
+    del out, want, models
+    return result, base
+
+
+def mesh_long_decode(torch, card: str, base, dev) -> dict:
+    """(b) ``long_context`` on (data 4 x model 1): the cache's sequence
+    split over four lanes of one card, against no mesh."""
+    import numpy as np
+
+    from repro_torch.dist.context import make_rules
+
+    cfg = base.cfg
+    ctx = make_rules(lane_mesh(dev, (4, 1)), cfg, long_context=True)
+    sharded = sharing(torch, base, cfg, ctx, long_context=True)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LONG_BATCH, LONG_PROMPT))).long().to(dev)
+    runs = {}
+    fed = None  # the no-mesh run's greedy tokens, fed to both
+    with torch.inference_mode():
+        for name, model in (("no mesh", base), ("sharded", sharded)):
+            logits, caches, _ = model.prefill({"tokens": prompt},
+                                              cache_len=LONG_CACHE)
+            seq, toks = [logits[:, 0]], [logits[:, 0].argmax(-1)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(LONG_STEPS):
+                tok = (toks[-1] if fed is None else fed[:, i])[:, None]
+                logits, caches = model.decode_step(caches, tok,
+                                                   LONG_PROMPT + i)
+                seq.append(logits[:, 0])
+                toks.append(logits[:, 0].argmax(-1))
+            torch.cuda.synchronize()
+            runs[name] = (torch.stack(seq, 1), torch.stack(toks, 1),
+                          (time.perf_counter() - t0) / LONG_STEPS * 1e3)
+            if fed is None:
+                fed = runs[name][1]
+    (want, want_tok, base_ms), (got, got_tok, ms) = (runs["no mesh"],
+                                                     runs["sharded"])
+    err = _close(torch, got, want, MESH_BF16_TOL,
+                 "long-context decode against no mesh")
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    differ = (got_tok != want_tok).cpu().numpy()
+    tol = MESH_BF16_TOL["atol"] + MESH_BF16_TOL["rtol"] * float(
+        top2[..., 0].abs().max())
+    check(bool((margin[differ] < 2 * tol).all()),
+          f"mesh: long-context greedy tokens differ beyond a near tie: "
+          f"margins {margin[differ]}")
+    log(f"mesh: long context, {MESH_ARCH} {MESH_LAYERS} layers, batch "
+        f"{LONG_BATCH}, a {LONG_PROMPT}-token prefill into {LONG_CACHE} "
+        f"slots, {LONG_STEPS} greedy steps: sharded over data = 4 lanes "
+        f"{ms:.3f} ms a step, no mesh {base_ms:.3f} ms a step; max "
+        f"|logit diff| {err:.3g}, {int(differ.sum())} of {differ.size} "
+        f"greedy tokens differ (each at a near tie); {card}")
+    return {"ms": ms, "no_mesh_ms": base_ms, "max_diff": err,
+            "token_diffs": int(differ.sum())}
+
+
+def mesh_card_vs_cpu(torch, dev) -> dict:
+    """(c) Every reduced architecture in float32 on 2 x 2 lanes on the
+    card and on the CPU, the same weights: logits and gradients."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.dist.context import make_rules
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.models.model import Model
+
+    moe = ("jamba-v0.1-52b", "mixtral-8x22b", "kimi-k2-1t-a32b")
+    cases = [(a, a, None, {}) for a in ARCH_IDS] + [
+        (f"{a} {m}", a, None, kw) for a in moe
+        for m, kw in (("replicated", {"ep_mode": "replicated"}),
+                      ("serve 2-D", {"serve_fsdp": False}))] + [
+        ("kimi-k2-1t-a32b cf 1.0", "kimi-k2-1t-a32b", 1.0, {})]
+    lanes = {"cpu": lane_mesh(torch.device("cpu"), (2, 2)),
+             "card": lane_mesh(dev, (2, 2))}
+
+    def close(a, b, scale, what):
+        diff = np.abs(a - b)
+        check(bool((diff <= MESH_CARD_CPU_TOL * (scale + np.abs(b))).all()),
+              f"mesh: {what}: max |card - cpu| {diff.max():.3g}")
+        return float(diff.max())
+
+    worst = {}
+    for label, arch, cf, kw in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+        ctxs = {k: make_rules(m, cfg, **kw) for k, m in lanes.items()}
+        cpu = Model(cfg, ctx=ctxs["cpu"], seed=0)
+        card = Model(cfg, ctx=ctxs["card"], device="meta").to_empty(
+            device=dev)
+        card.load_state_dict(cpu.state_dict())
+        batch = train_inputs(cfg, batch=4)
+        runs = {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            b = _on(torch, batch, model.device)
+            with torch.no_grad():
+                logits, _ = model(b)
+            loss, _ = model.loss_fn(b)
+            loss.backward()
+            grads = [leaf.stack([t.grad for t in leaf.tensors]).cpu().numpy()
+                     for leaf in reference_leaves(model)]
+            runs[name] = (logits.cpu().numpy(), float(loss.detach()), grads)
+        err = close(runs["card"][0], runs["cpu"][0], 1.0, f"{label} logits")
+        err = max(err, close(runs["card"][1], runs["cpu"][1], 1.0,
+                             f"{label} loss"))
+        for g_card, g_cpu in zip(runs["card"][2], runs["cpu"][2]):
+            err = max(err, close(g_card, g_cpu, np.abs(g_cpu).max(),
+                                 f"{label} gradient"))
+        if arch == "gemma-2b":  # its one KV head, repeated for model = 2
+            seqs = {}
+            for name, model in (("cpu", cpu), ("card", card)):
+                toks = torch.as_tensor(batch["tokens"]).long().to(
+                    model.device)
+                with torch.no_grad():
+                    out, caches, _ = model.prefill(
+                        {"tokens": toks[:, :12]}, cache_len=16)
+                    seq = [out]
+                    for i in range(2):
+                        out, caches = model.decode_step(
+                            caches, toks[:, 12 + i:13 + i], 12 + i)
+                        seq.append(out)
+                check(caches[0]["attn"]["k"].shape[2] == 2,
+                      f"mesh: gemma-2b cache heads "
+                      f"{caches[0]['attn']['k'].shape}")
+                seqs[name] = torch.cat(seq, 1).cpu().numpy()
+            err = max(err, close(seqs["card"], seqs["cpu"], 1.0,
+                                 "gemma-2b prefill and decode"))
+        worst[label] = err
+    log("mesh: reduced configs in float32 on 2 x 2 lanes, card against "
+        f"CPU: logits, loss and gradients (max |diff|; tolerance "
+        f"{MESH_CARD_CPU_TOL} abs and rel, gradients relative to their "
+        "leaf's largest): " + ", ".join(f"{a} {e:.3g}"
+                                        for a, e in worst.items()))
+    return worst
+
+
+def mesh_cli(dev) -> list:
+    """(d) ``launch.train --mesh 2x2`` with its four lanes on the card."""
+    import numpy as np
+
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "mixtral-8x22b", "--reduced", "--mesh", "2x2", "--device",
+         ",".join([str(dev)] * 4), "--steps", str(MESH_CLI_STEPS),
+         "--batch", "4", "--seq", "32", "--lr", "3e-3", "--log-every", "1"],
+        capture_output=True, text=True, timeout=300, env=_src_env())
+    losses = [float(line.split()[3]) for line in r.stdout.splitlines()
+              if line.startswith("step ")]
+    check(r.returncode == 0 and len(losses) == MESH_CLI_STEPS
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"mesh: launch.train --mesh 2x2 rc {r.returncode}: "
+          f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    log(f"mesh: launch.train --arch mixtral-8x22b --reduced --mesh 2x2 on "
+        f"[{dev}] * 4: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{MESH_CLI_STEPS} steps")
+    return losses
+
+
+def phase_mesh(torch, card: str, dev) -> dict:
+    """Phase 13: the mesh.  It must launch no SpMV kernel."""
+    from repro_torch.kernels.spmv import cuda
+
+    before = dict(cuda.launches)
+    out, base = mesh_full_width(torch, card, dev)
+    out["long"] = mesh_long_decode(torch, card, base, dev)
+    del base
+    torch.cuda.empty_cache()
+    out["card_cpu_max_diff"] = mesh_card_vs_cpu(torch, dev)
+    out["cli_losses"] = mesh_cli(dev)
+    check(dict(cuda.launches) == before,
+          f"mesh: SpMV launches moved: {before} -> {dict(cuda.launches)}")
+    log("mesh: no SpMV kernel launched")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3041,6 +3377,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_train(torch, card, tmp)
         log(f"train: all checks passed in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_mesh(torch, card, torch.device("cuda", 0))
+        log(f"mesh: all checks passed in {time.perf_counter() - t0:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)

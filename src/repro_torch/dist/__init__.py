@@ -1,1 +1,2 @@
-"""Device lanes for the multi-device engines (``context.make_data_devices``)."""
+"""Device lanes and meshes (``context``) and the lane-by-lane collectives
+of the LLM stack's mesh (``spmd``)."""

@@ -7,10 +7,16 @@ Production behaviours wired in:
     ``python -m repro.launch.train`` resumes here, and the other way);
   * emergency checkpoint on SIGTERM/SIGINT;
   * deterministic host-local data (restart-safe, straggler-free);
-  * optional int8 error-feedback gradient compression (--grad-compression).
+  * optional int8 error-feedback gradient compression (--grad-compression);
+  * ``--mesh dxm``: a (data, model) mesh of d * m lanes in this process
+    (``dist.context.make_rules``'s layout, the MoE expert-parallel).
 
-One device: the GPU unless ``--device cpu`` is given (without a GPU it
-raises).  The reference's ``--mesh`` (sharded runs) is not ported yet.
+``--device`` names the device: the GPU unless ``--device cpu`` is given
+(without a GPU it raises).  With ``--mesh`` it names the lanes' devices:
+``cuda`` wants one GPU a lane and raises with fewer, ``cpu`` gives CPU
+lanes, and a comma-separated list names each lane's device, so
+``--mesh 2x2 --device cuda:0,cuda:0,cuda:0,cuda:0`` puts the four lanes on
+one card.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.engine import resolve_device
+from repro_torch.dist.context import make_rules
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import build_model
 from repro_torch.train import OptConfig, make_init_state, make_train_step
 from repro_torch.train.checkpoint import CheckpointManager
@@ -44,6 +52,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--mesh", default=None, help="e.g. 2x2 => (data, model)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -52,8 +61,17 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    device = resolve_device(args.device)
-    model = build_model(cfg, device=device, seed=args.seed)
+    mesh = None
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split("x"))
+        lanes = args.device.split(",")
+        mesh = make_mesh((d, m), ("data", "model"),
+                         lanes if len(lanes) > 1 else lanes[0])
+        device = mesh.first_device
+    else:
+        device = resolve_device(args.device)
+    model = build_model(cfg, make_rules(mesh, cfg), device=device,
+                        seed=args.seed)
     opt = OptConfig(name=args.optimizer, peak_lr=args.lr,
                     warmup_steps=max(args.steps // 20, 1),
                     decay_steps=args.steps)

@@ -10,12 +10,20 @@ matrix is never materialised.  Scores and ``P @ V`` accumulate in float32;
 Decode updates the caches in place.  Archs with a sliding window keep a
 ring buffer of ``window`` slots with each slot's absolute position (-1
 while empty).
+
+On a mesh: GQA repeats the KV heads physically up to the tensor-parallel
+degree when needed (``kv_repeat_for``; kv 8 -> 16 on a 16-way 'model'
+axis), so caches hold ``K * rep`` heads.  Long-context decode
+(``kv_seq_sharded``) shards the cache's sequence over the 'data' lanes
+and combines their partial softmax statistics (``flash_decode_sharded``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.dist import spmd
+from repro_torch.dist.context import DISABLED, P, ShardCtx
 from repro_torch.models.nn import Init
 
 NEG_INF = -1e30
@@ -76,21 +84,41 @@ class Attention(nn.Module):
         super().__init__()
         d, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim
-        self.wq = init.dense((d, H, hd), dtype)
-        self.wk = init.dense((d, K, hd), dtype)
-        self.wv = init.dense((d, K, hd), dtype)
-        self.wo = init.dense((H, hd, d), dtype)
+        self.wq = init.dense((d, H, hd), dtype,
+                             ("embed", "q_heads", "head_dim"))
+        self.wk = init.dense((d, K, hd), dtype,
+                             ("embed", "kv_heads", "head_dim"))
+        self.wv = init.dense((d, K, hd), dtype,
+                             ("embed", "kv_heads", "head_dim"))
+        self.wo = init.dense((H, hd, d), dtype,
+                             ("q_heads", "head_dim", "embed"))
+
+
+def kv_repeat_for(cfg, ctx: ShardCtx | None) -> int:
+    """Physical KV-head repetition so heads shard on the model axis."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    tp = (ctx or DISABLED).axis_size("q_heads")
+    if tp <= 1 or H % tp != 0:
+        return 1
+    r = 1
+    while (K * r) % tp != 0 and (K * r) < H:
+        r *= 2
+    return r if (K * r) % tp == 0 and H % (K * r) == 0 else 1
 
 
 # --------------------------------------------------------------------------
 # flash attention (blocked; numerics match a plain softmax)
 # --------------------------------------------------------------------------
-def _block_attend(q, kblk, vblk, m, l, acc, qpos, kpos, *, causal, window):
+def _block_attend(q, kblk, vblk, m, l, acc, qpos, kpos, *, causal, window,
+                  kv_len: int | None = None):
     """One KV block of the streaming softmax.  q: [B,Sq,K,G,hd] float32,
-    kblk/vblk: [B,bk,K,hd]; m, l: [B,K,G,Sq]; acc: [B,Sq,K,G,hd]."""
+    kblk/vblk: [B,bk,K,hd]; m, l: [B,K,G,Sq]; acc: [B,Sq,K,G,hd].
+    Positions below 0, and at or past ``kv_len``, are masked."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqkgh,bjkh->bkgqj", q, kblk.float()) * scale
     valid = (kpos[None, :] >= 0)
+    if kv_len is not None:
+        valid = valid & (kpos[None, :] < kv_len)
     if causal:
         valid = valid & (kpos[None, :] <= qpos[:, None])
     if window:
@@ -144,18 +172,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # --------------------------------------------------------------------------
 # layer application
 # --------------------------------------------------------------------------
-def attention_apply(p: Attention, x, positions, cfg, *, causal: bool = True,
+def attention_apply(p: Attention, x, positions, cfg,
+                    ctx: ShardCtx | None = None, *, causal: bool = True,
                     cache: dict | None = None, cache_index: int | None = None,
+                    kv_seq_sharded: bool = False,
                     cross_kv: torch.Tensor | None = None):
     """Self- or cross-attention.
 
     train/prefill: cache is None (or a dict to fill at positions [0, S)).
-    decode: x is [B, 1, d], cache holds [B, S_max, K, hd] and is updated
-    in place at ``cache_index`` (a Python int: no host sync).  Returns
-    (out, cache).
+    decode: x is [B, 1, d], cache holds [B, S_max, K * rep, hd] and is
+    updated in place at ``cache_index`` (a Python int: no host sync);
+    with ``kv_seq_sharded`` on an enabled ``ctx`` it is attended lane by
+    lane (``flash_decode_sharded``).  Returns (out, cache).
     """
+    ctx = ctx or DISABLED
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
+    rep = kv_repeat_for(cfg, ctx)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq)
     kv_src = cross_kv if cross_kv is not None else x
     k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
@@ -167,6 +200,11 @@ def attention_apply(p: Attention, x, positions, cfg, *, causal: bool = True,
                        mrope_sections=sections)
         k = apply_rope(k, positions, fraction=frac, theta=cfg.rope_theta,
                        mrope_sections=sections)
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    q = ctx.constrain(q, ("batch", "seq", "q_heads", "head_dim"))
+    k = ctx.constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
     window = cfg.sliding_window
 
     if cache is not None and cache_index is not None and S == 1:
@@ -181,6 +219,10 @@ def attention_apply(p: Attention, x, positions, cfg, *, causal: bool = True,
             out = flash_attention(q, cache["k"], cache["v"], causal=True,
                                   window=window, q_offset=cache_index,
                                   kv_positions=cache["pos"])
+        elif kv_seq_sharded and ctx.enabled:
+            out = flash_decode_sharded(q, cache["k"], cache["v"],
+                                       cache_index + 1, ctx,
+                                       q_offset=cache_index, window=window)
         else:
             out = flash_attention(q, cache["k"], cache["v"], causal=True,
                                   window=window, q_offset=cache_index,
@@ -198,4 +240,48 @@ def attention_apply(p: Attention, x, positions, cfg, *, causal: bool = True,
                 cache["pos"][:kept] = torch.arange(S - kept, S,
                                                    device=x.device)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo)
-    return y, cache
+    return ctx.constrain(y, ("batch", "seq", "embed")), cache
+
+
+def flash_decode_sharded(q, k_cache, v_cache, kv_len: int, ctx: ShardCtx, *,
+                         q_offset: int, window: int = 0):
+    """Sequence-parallel decode (long_500k): the KV cache's sequence is
+    split over the 'data' lanes; each lane attends its slice as one block
+    of ``Sl`` positions, and the partial softmax statistics combine with
+    ``pmax`` and ``psum`` over 'data' (flash-decoding, lane by lane)."""
+    mesh = ctx.mesh
+    axis = "data"
+    qs = spmd.shard(q, P(), mesh)
+    ks = spmd.shard(k_cache, P(None, axis), mesh)
+    vs = spmd.shard(v_cache, P(None, axis), mesh)
+
+    def local(qb, kb, vb, me):
+        Sl = kb.shape[1]
+        B, Sq, H, hd = qb.shape
+        K = kb.shape[2]
+        G = H // K
+        dev = qb.device
+        qg = qb.reshape(B, Sq, K, G, hd).float()
+        m0 = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                        device=dev)
+        l0 = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32, device=dev)
+        kpos = int(me) * Sl + torch.arange(Sl, device=dev)
+        qpos = q_offset + torch.arange(Sq, device=dev)
+        return _block_attend(qg, kb, vb, m0, l0, a0, qpos, kpos, causal=True,
+                             window=window, kv_len=kv_len)
+
+    m, l, acc = spmd.lanewise(local, qs, ks, vs,
+                              spmd.axis_index(mesh, axis))
+    # combine the partial softmax statistics across the sequence shards
+    m_all = spmd.pmax(m, axis, mesh)
+    corr = spmd.lanewise(lambda a, b: torch.exp(a - b), m, m_all)
+    l_all = spmd.psum(spmd.lanewise(torch.mul, l, corr), axis, mesh)
+    acc_all = spmd.psum(spmd.lanewise(
+        lambda a, c: a * c.permute(0, 3, 1, 2)[..., None], acc, corr),
+        axis, mesh)
+
+    def finish(a, s):
+        out = a / torch.clamp_min(s, 1e-30).permute(0, 3, 1, 2)[..., None]
+        return out.reshape(q.shape).to(q.dtype)
+    return spmd.unshard(spmd.lanewise(finish, acc_all, l_all), P(), mesh)

@@ -137,6 +137,13 @@ class Leaf:
     def dtype(self) -> torch.dtype:
         return self.tensors[0].dtype
 
+    @property
+    def axes(self) -> tuple:
+        """The reference's logical axes: a stacked leaf's first is
+        "layers" (``repro.models.nn.add_leading_axis``)."""
+        one = tuple(self.tensors[0].axes)
+        return ("layers",) + one if self.stacked else one
+
     def stack(self, parts=None) -> torch.Tensor:
         """``parts`` (default: the parameters' values), one per tensor, as
         the reference's array of this leaf."""

@@ -5,16 +5,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.context import DISABLED, ShardCtx
 from repro_torch.models.nn import Init, gelu, silu
 
 
 class FFN(nn.Module):
     def __init__(self, init: Init, d: int, d_ff: int, mlp_type: str, dtype):
         super().__init__()
-        self.w_up = init.dense((d, d_ff), dtype)
-        self.w_down = init.dense((d_ff, d), dtype)
+        self.w_up = init.dense((d, d_ff), dtype, ("embed", "ffn"))
+        self.w_down = init.dense((d_ff, d), dtype, ("ffn", "embed"))
         if mlp_type in ("swiglu", "geglu"):
-            self.w_gate = init.dense((d, d_ff), dtype)
+            self.w_gate = init.dense((d, d_ff), dtype, ("embed", "ffn"))
 
 
 def _act(h, mlp_type: str):
@@ -25,7 +26,8 @@ def _act(h, mlp_type: str):
     raise ValueError(mlp_type)
 
 
-def ffn_apply(p: FFN, x, mlp_type: str):
+def ffn_apply(p: FFN, x, mlp_type: str, ctx: ShardCtx | None = None):
+    ctx = ctx or DISABLED
     if mlp_type in ("swiglu", "geglu"):
         gate = x @ p.w_gate
         up = x @ p.w_up
@@ -33,4 +35,5 @@ def ffn_apply(p: FFN, x, mlp_type: str):
         h = gate * up
     else:
         h = _act(x @ p.w_up, mlp_type)
-    return h @ p.w_down
+    h = ctx.constrain(h, ("batch", "seq", "ffn"))
+    return ctx.constrain(h @ p.w_down, ("batch", "seq", "embed"))

@@ -20,6 +20,12 @@ Modes: ``loss_fn`` (training: the masked next-token loss), ``forward``
 and ``decode_step`` (one token against the caches and states, updated in
 place).  Logits are float32 over the padded vocab.
 
+On a mesh (``ctx``, ``dist.context.make_rules``) the parameters and the
+dense layers stay whole on the mesh's first lane; the expert-parallel MoE
+and the sequence-sharded decode run lane by lane, as the reference's
+``shard_map`` code does, and the KV caches repeat their heads for tensor
+parallelism (``kv_repeat_for``).
+
 Training recomputes each reference *unit* (one block for gemma, the
 8-block unit for jamba and xlstm) in the backward pass when ``remat`` is
 on, as the reference's ``jax.checkpoint`` of its scan body does; remat
@@ -39,8 +45,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
+from repro_torch.dist.context import DISABLED, ShardCtx
 from repro_torch.models.attention import (Attention, attention_apply,
-                                          positions_for)
+                                          kv_repeat_for, positions_for)
 from repro_torch.models.ffn import FFN, ffn_apply
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.nn import DTYPES, Init, Norm, apply_norm
@@ -93,6 +100,15 @@ def layer_descs(cfg: ArchConfig, *, encoder: bool = False) -> list[tuple]:
             for _ in range(repeat) for desc in unit]
 
 
+def layer_paths(cfg: ArchConfig, *, encoder: bool = False) -> list[str]:
+    """The reference's tree path of each layer's block ("group1/b0"), in
+    the port's layer order."""
+    prefix = "enc_group" if encoder else "group"
+    return [f"{prefix}{gi}/b{i}" for gi, (unit, repeat)
+            in enumerate(layer_groups(cfg, encoder=encoder))
+            for _ in range(repeat) for i in range(len(unit))]
+
+
 # --------------------------------------------------------------------------
 # blocks
 # --------------------------------------------------------------------------
@@ -124,11 +140,12 @@ class Block(nn.Module):
 
 
 def _init_cache_block(desc, cfg: ArchConfig, batch: int, cache_len: int,
-                      dtype, device) -> dict:
+                      ctx: ShardCtx, dtype, device) -> dict:
     mixer, _ = desc
     c: dict[str, Any] = {}
     if mixer == "attn":
-        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        K = cfg.num_kv_heads * kv_repeat_for(cfg, ctx)
+        hd = cfg.resolved_head_dim
         slen = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
                 else cache_len)
         c["attn"] = {
@@ -151,43 +168,44 @@ def _init_cache_block(desc, cfg: ArchConfig, batch: int, cache_len: int,
     return c
 
 
-def _apply_block(p: Block, x, positions, cfg: ArchConfig, *, cache,
-                 cache_index, enc_out, causal, ssm_dtype: str = "float32",
-                 unroll: bool = False):
+def _apply_block(p: Block, x, positions, cfg: ArchConfig, ctx: ShardCtx, *,
+                 cache, cache_index, enc_out, causal, long_context: bool,
+                 ssm_dtype: str = "float32", unroll: bool = False):
     mixer, ffn = p.desc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(x, p.norm1, cfg.norm_type)
     if mixer == "attn":
         a, _ = attention_apply(
-            p.attn, h, positions, cfg, causal=causal,
+            p.attn, h, positions, cfg, ctx, causal=causal,
             cache=None if cache is None else cache["attn"],
-            cache_index=cache_index)
+            cache_index=cache_index,
+            kv_seq_sharded=long_context and not cfg.sliding_window)
     elif mixer == "mamba":
         # unroll: one full-sequence chunk (the reference's roofline mode)
-        a, st = mamba_apply(p.mamba, h, cfg.mamba,
+        a, st = mamba_apply(p.mamba, h, cfg.mamba, ctx,
                             state=None if cache is None else cache["mamba"],
                             chunk=x.shape[1] if unroll else 256,
                             scan_dtype=ssm_dtype)
     elif mixer == "mlstm":
-        a, st = mlstm_apply(p.mlstm, h, cfg.num_heads, cfg.xlstm,
+        a, st = mlstm_apply(p.mlstm, h, cfg.num_heads, cfg.xlstm, ctx,
                             state=None if cache is None else cache["mlstm"])
     else:
-        a, st = slstm_apply(p.slstm, h, cfg.num_heads,
+        a, st = slstm_apply(p.slstm, h, cfg.num_heads, ctx,
                             state=None if cache is None else cache["slstm"])
     if cache is not None and mixer != "attn":  # attn updates in place
         cache[mixer] = st
     x = x + a
     if enc_out is not None:
         h = apply_norm(x, p.norm_x, cfg.norm_type)
-        a, _ = attention_apply(p.xattn, h, positions, cfg, causal=False,
-                               cross_kv=enc_out)
+        a, _ = attention_apply(p.xattn, h, positions, cfg, ctx,
+                               causal=False, cross_kv=enc_out)
         x = x + a
     if ffn in ("ffn", "moe"):
         h = apply_norm(x, p.norm2, cfg.norm_type)
         if ffn == "ffn":
-            x = x + ffn_apply(p.ffn, h, cfg.mlp_type)
+            x = x + ffn_apply(p.ffn, h, cfg.mlp_type, ctx)
         else:
-            y, aux = moe_apply(p.moe, h, cfg.moe, cfg.mlp_type)
+            y, aux = moe_apply(p.moe, h, cfg.moe, cfg.mlp_type, ctx)
             x = x + y
     return x, aux
 
@@ -212,40 +230,49 @@ REMAT_POLICIES = {
 # model
 # --------------------------------------------------------------------------
 class Model(nn.Module):
-    """All ten architectures on one device: training and serving.
+    """All ten architectures, on one device or a mesh: training and
+    serving.
 
-    ``device=None`` means ``"cuda"`` (raising when there is no GPU);
+    ``ctx`` (default: the disabled context) is the mesh layout from
+    ``dist.context.make_rules``.  ``device=None`` means the mesh's first
+    lane, or ``"cuda"`` without a mesh (raising when there is no GPU);
     ``device="meta"`` allocates nothing (``param_count``).  Parameters are
     drawn from a ``torch.Generator`` seeded by ``seed``.  The training
     knobs are the reference's: ``remat`` recomputes each unit in the
     backward pass, keeping nothing (``remat_policy="nothing"``) or the
     matmul outputs (``"dots"``); ``unroll`` scans Mamba's whole sequence
-    as one chunk; ``long_context`` (the reference's KV-sequence sharding)
-    needs a mesh and changes nothing on one device.
+    as one chunk.  ``long_context`` shards the KV cache's sequence over
+    the 'data' lanes in decode (``attention.flash_decode_sharded``) on an
+    enabled context, for archs without a sliding window.
     """
 
-    def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
-                 ssm_dtype: str = "float32", remat: bool = True,
-                 remat_policy: str = "nothing", unroll: bool = False,
-                 long_context: bool = False):
+    def __init__(self, cfg: ArchConfig, *, ctx: ShardCtx | None = None,
+                 device=None, seed: int = 0, ssm_dtype: str = "float32",
+                 remat: bool = True, remat_policy: str = "nothing",
+                 unroll: bool = False, long_context: bool = False):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r}: expected one "
                              f"of {sorted(REMAT_POLICIES)}")
         self.cfg = cfg
+        self.ctx = ctx or DISABLED
         self.ssm_dtype = ssm_dtype
         self.remat = remat
         self.remat_policy = remat_policy
         self.unroll = unroll
         self.long_context = long_context
-        dev = resolve_device("cuda" if device is None else device)
+        if device is None:
+            device = (self.ctx.mesh.first_device if self.ctx.enabled
+                      else "cuda")
+        dev = resolve_device(device)
         init = Init(dev, seed)
         dtype = self.dtype
         V = padded_vocab(cfg)
         self.embed = init.embed(V, cfg.d_model, dtype)
         self.norm_f = Norm(init, cfg.norm_type, cfg.d_model)
         if not cfg.tie_embeddings:
-            self.unembed = init.dense((cfg.d_model, V), dtype)
+            self.unembed = init.dense((cfg.d_model, V), dtype,
+                                      ("embed", "vocab"))
         self.layers = nn.ModuleList(
             Block(init, desc, cfg, dtype, cross=cfg.is_encdec)
             for desc in layer_descs(cfg))
@@ -277,10 +304,11 @@ class Model(nn.Module):
         def run_unit(first: int, count: int, x, aux_total):
             for i in range(first, first + count):
                 x, aux = _apply_block(
-                    layers[i], x, positions, self.cfg,
+                    layers[i], x, positions, self.cfg, self.ctx,
                     cache=None if caches is None else caches[i],
                     cache_index=cache_index, enc_out=enc_out, causal=causal,
-                    ssm_dtype=self.ssm_dtype, unroll=self.unroll)
+                    long_context=self.long_context, ssm_dtype=self.ssm_dtype,
+                    unroll=self.unroll)
                 aux_total = aux_total + aux
             return x, aux_total
 
@@ -359,9 +387,12 @@ class Model(nn.Module):
         return loss, {"ce": loss, "aux": aux}
 
     # ---- serving ---------------------------------------------------------
-    def init_cache(self, batch_size: int, cache_len: int) -> list[dict]:
+    def init_cache(self, batch_size: int, cache_len: int,
+                   device=None) -> list[dict]:
+        """One cache dict a layer, on ``device`` (default: the model's)."""
         return [_init_cache_block(block.desc, self.cfg, batch_size,
-                                  cache_len, self.dtype, self.device)
+                                  cache_len, self.ctx, self.dtype,
+                                  self.device if device is None else device)
                 for block in self.layers]
 
     def prefill(self, batch: dict, cache_len: int):
@@ -384,9 +415,9 @@ class Model(nn.Module):
         return self._logits(x), caches
 
 
-def build_model(cfg: ArchConfig, *, device=None, seed: int = 0,
-                **kw) -> Model:
-    return Model(cfg, device=device, seed=seed, **kw)
+def build_model(cfg: ArchConfig, ctx: ShardCtx | None = None, *,
+                device=None, seed: int = 0, **kw) -> Model:
+    return Model(cfg, ctx=ctx, device=device, seed=seed, **kw)
 
 
 def param_count(cfg: ArchConfig) -> int:

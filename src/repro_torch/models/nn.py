@@ -3,7 +3,8 @@
 Weights live in ``nn.Module``s.  ``Init`` makes each ``nn.Parameter``
 directly on its device, filled from one explicit ``torch.Generator`` (the
 role of the reference's ``KeyGen``): the same shapes, dtypes and
-distributions as the reference's initialisers, not the same values.  On
+distributions as the reference's initialisers, not the same values.  Each
+parameter carries the reference's logical axes as ``param.axes``.  On
 the ``meta`` device it allocates nothing, which is how ``param_count``
 counts a full-size model.
 
@@ -24,6 +25,10 @@ import torch
 from torch import nn
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# a parameter's logical axes, one name (or None) a dim: the reference's
+# ``Param.axes``, which ``dist.context.ShardCtx.param_sharding`` maps
+Axes = tuple
 
 
 def const(c: float, like: torch.Tensor) -> torch.Tensor:
@@ -59,30 +64,37 @@ class Init:
         self.generator = (None if device.type == "meta"
                           else torch.Generator(device).manual_seed(seed))
 
-    def _param(self, shape, dtype, fill) -> nn.Parameter:
+    def _param(self, shape, dtype, axes, fill) -> nn.Parameter:
         if self.generator is None:
-            return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                            device=self.device))
-        return nn.Parameter(fill().to(dtype))
+            p = nn.Parameter(torch.empty(shape, dtype=dtype,
+                                         device=self.device))
+        else:
+            p = nn.Parameter(fill().to(dtype))
+        p.axes = tuple(axes)  # logical axes (dist.context.ShardCtx)
+        return p
 
-    def dense(self, shape: tuple[int, ...], dtype,
+    def dense(self, shape: tuple[int, ...], dtype, axes: Axes,
               scale: float | None = None) -> nn.Parameter:
         fan_in = math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
         std = scale if scale is not None else fan_in ** -0.5
-        return self._param(shape, dtype, lambda: torch.randn(
-            shape, generator=self.generator, device=self.device) * std)
+        # scaled in place: one float32 buffer at a time (a 384-expert
+        # weight is 22 GB in float32)
+        return self._param(shape, dtype, axes, lambda: torch.randn(
+            shape, generator=self.generator, device=self.device).mul_(std))
 
     def embed(self, vocab: int, d: int, dtype) -> nn.Parameter:
-        return self.dense((vocab, d), dtype, scale=d ** -0.5)
+        return self.dense((vocab, d), dtype, ("vocab", "embed"),
+                          scale=d ** -0.5)
 
-    def full(self, shape: tuple[int, ...], value: float,
-             dtype) -> nn.Parameter:
-        return self._param(shape, dtype, lambda: torch.full(
+    def full(self, shape: tuple[int, ...], value: float, dtype,
+             axes: Axes) -> nn.Parameter:
+        return self._param(shape, dtype, axes, lambda: torch.full(
             shape, value, device=self.device))
 
-    def tensor(self, make, shape: tuple[int, ...], dtype) -> nn.Parameter:
+    def tensor(self, make, shape: tuple[int, ...], dtype,
+               axes: Axes) -> nn.Parameter:
         """A deterministic parameter: ``make(device)`` builds its value."""
-        return self._param(shape, dtype, lambda: make(self.device))
+        return self._param(shape, dtype, axes, lambda: make(self.device))
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -107,10 +119,10 @@ class Norm(nn.Module):
     def __init__(self, init: Init, norm_type: str, d: int):
         super().__init__()
         if norm_type == "layernorm":
-            self.gamma = init.full((d,), 1.0, torch.float32)
-            self.beta = init.full((d,), 0.0, torch.float32)
+            self.gamma = init.full((d,), 1.0, torch.float32, (None,))
+            self.beta = init.full((d,), 0.0, torch.float32, (None,))
         else:
-            self.gamma = init.full((d,), 0.0, torch.float32)
+            self.gamma = init.full((d,), 0.0, torch.float32, (None,))
 
 
 def apply_norm(x, p: Norm, norm_type: str):

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import MambaConfig
+from repro_torch.dist.context import DISABLED, ShardCtx
 from repro_torch.models.nn import DTYPES, Init, silu, softplus
 
 
@@ -29,18 +30,23 @@ class Mamba(nn.Module):
         di = d_inner_of(d, mc)
         dtr = dt_rank_of(d, mc)
         N = mc.d_state
-        self.in_proj = init.dense((d, 2 * di), dtype)
-        self.conv_w = init.dense((mc.d_conv, di), dtype, scale=0.5)
-        self.conv_b = init.full((di,), 0.0, dtype)
-        self.x_proj = init.dense((di, dtr + 2 * N), dtype)
-        self.dt_proj = init.dense((dtr, di), dtype)
-        self.dt_bias = init.full((di,), 0.0, dtype)
+        self.in_proj = init.dense((d, 2 * di), dtype,
+                                  ("embed", "mamba_inner"))
+        self.conv_w = init.dense((mc.d_conv, di), dtype,
+                                 (None, "mamba_inner"), scale=0.5)
+        self.conv_b = init.full((di,), 0.0, dtype, ("mamba_inner",))
+        self.x_proj = init.dense((di, dtr + 2 * N), dtype,
+                                 ("mamba_inner", None))
+        self.dt_proj = init.dense((dtr, di), dtype,
+                                  (None, "mamba_inner"))
+        self.dt_bias = init.full((di,), 0.0, dtype, ("mamba_inner",))
         self.A_log = init.tensor(
             lambda dev: torch.log(torch.arange(
                 1, N + 1, dtype=torch.float32, device=dev)).repeat(di, 1),
-            (di, N), torch.float32)
-        self.D = init.full((di,), 1.0, dtype)
-        self.out_proj = init.dense((di, d), dtype)
+            (di, N), torch.float32, ("mamba_inner", "state"))
+        self.D = init.full((di,), 1.0, dtype, ("mamba_inner",))
+        self.out_proj = init.dense((di, d), dtype,
+                                   ("mamba_inner", "embed"))
 
 
 def _prefix_scan(a, bx):
@@ -84,8 +90,9 @@ def _ssm_scan_chunked(dA, dBx, Cs, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_apply(p: Mamba, x, mc: MambaConfig, *, state: dict | None = None,
-                chunk: int = 256, scan_dtype: str = "float32"):
+def mamba_apply(p: Mamba, x, mc: MambaConfig, ctx: ShardCtx | None = None,
+                *, state: dict | None = None, chunk: int = 256,
+                scan_dtype: str = "float32"):
     """x: [B, S, d] -> (y, new_state).  state carries (conv, ssm) for decode.
 
     ``scan_dtype='bfloat16'`` keeps the [B, S, di, N] discretisation tensors
@@ -96,6 +103,8 @@ def mamba_apply(p: Mamba, x, mc: MambaConfig, *, state: dict | None = None,
     dc = p.conv_w.shape[0]
     xz = x @ p.in_proj
     xr, z = xz.chunk(2, dim=-1)
+    ctx = ctx or DISABLED
+    xr = ctx.constrain(xr, ("batch", "seq", "mamba_inner"))
 
     # causal depthwise conv over the sequence (the same op order for S = 1
     # and S > 1, so decode and prefill agree bitwise in bf16)
@@ -127,7 +136,7 @@ def mamba_apply(p: Mamba, x, mc: MambaConfig, *, state: dict | None = None,
         y, h_last = _ssm_scan_chunked(dA, dBx, Cs.float(), h0, chunk)
     y = y.to(x.dtype) + xc * p.D
     y = y * silu(z)
-    out = y @ p.out_proj
+    out = ctx.constrain(y @ p.out_proj, ("batch", "seq", "embed"))
     return out, {"conv": new_conv, "ssm": h_last}
 
 

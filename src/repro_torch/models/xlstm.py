@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.dist.context import DISABLED, ShardCtx
 from repro_torch.models.nn import Init, const, gelu, silu
 
 NEG = -1e30
@@ -38,17 +39,19 @@ class MLSTM(nn.Module):
         di = int(d * xc.proj_factor_mlstm)
         bs = min(xc.qkv_blocksize, di)
         nb = di // bs
-        self.up = init.dense((d, 2 * di), dtype)
+        self.up = init.dense((d, 2 * di), dtype, ("embed", "mamba_inner"))
         # block-diagonal projections (the paper's qkv_proj_blocksize)
-        self.wq = init.dense((nb, bs, bs), dtype)
-        self.wk = init.dense((nb, bs, bs), dtype)
-        self.wv = init.dense((nb, bs, bs), dtype)
-        self.wi = init.dense((di, num_heads), f32, scale=0.01)
-        self.wf = init.dense((di, num_heads), f32, scale=0.01)
-        self.bi = init.full((num_heads,), 0.0, f32)
-        self.bf = init.full((num_heads,), 3.0, f32)
-        self.ogate = init.dense((d, di), dtype)
-        self.down = init.dense((di, d), dtype)
+        self.wq = init.dense((nb, bs, bs), dtype, ("mamba_inner", None, None))
+        self.wk = init.dense((nb, bs, bs), dtype, ("mamba_inner", None, None))
+        self.wv = init.dense((nb, bs, bs), dtype, ("mamba_inner", None, None))
+        self.wi = init.dense((di, num_heads), f32, (None, "lstm_heads"),
+                             scale=0.01)
+        self.wf = init.dense((di, num_heads), f32, (None, "lstm_heads"),
+                             scale=0.01)
+        self.bi = init.full((num_heads,), 0.0, f32, ("lstm_heads",))
+        self.bf = init.full((num_heads,), 3.0, f32, ("lstm_heads",))
+        self.ogate = init.dense((d, di), dtype, ("embed", "mamba_inner"))
+        self.down = init.dense((di, d), dtype, ("mamba_inner", "embed"))
 
 
 def init_mlstm_state(B: int, H: int, hd: int, device=None) -> dict:
@@ -124,8 +127,8 @@ def _mlstm_chunked(q, k, v, li, lf, state, chunk: int):
     return y, {"C": C, "n": n, "m": m}
 
 
-def mlstm_apply(p: MLSTM, x, num_heads: int, xc: XLSTMConfig, *,
-                state: dict | None = None):
+def mlstm_apply(p: MLSTM, x, num_heads: int, xc: XLSTMConfig,
+                ctx: ShardCtx | None = None, *, state: dict | None = None):
     """x: [B, S, d] -> (y, new_state)."""
     B, S, d = x.shape
     xr, res = (x @ p.up).chunk(2, dim=-1)
@@ -155,7 +158,8 @@ def mlstm_apply(p: MLSTM, x, num_heads: int, xc: XLSTMConfig, *,
     y = y.reshape(B, S, di).to(x.dtype)
     y = y * silu(x @ p.ogate)
     y = y + res
-    return y @ p.down, new_state
+    ctx = ctx or DISABLED
+    return ctx.constrain(y @ p.down, ("batch", "seq", "embed")), new_state
 
 
 # --------------------------------------------------------------------------
@@ -167,16 +171,18 @@ class SLSTM(nn.Module):
         super().__init__()
         dh = d // num_heads
         dff = int(d * xc.proj_factor_slstm)
-        self.wx = init.dense((d, 4, d), dtype)
-        self.r = init.dense((num_heads, dh, 4, dh), dtype, scale=dh ** -0.5)
+        self.wx = init.dense((d, 4, d), dtype, ("embed", None, "mamba_inner"))
+        self.r = init.dense((num_heads, dh, 4, dh), dtype,
+                            ("lstm_heads", None, None, None), scale=dh ** -0.5)
 
         def bias(dev):  # forget-gate bias 3
             b = torch.zeros((4, d), dtype=torch.float32, device=dev)
             b[1] = 3.0
             return b
-        self.b = init.tensor(bias, (4, d), torch.float32)
-        self.up = init.dense((d, 2 * dff), dtype)
-        self.down = init.dense((dff, d), dtype)
+        self.b = init.tensor(bias, (4, d), torch.float32,
+                             (None, "mamba_inner"))
+        self.up = init.dense((d, 2 * dff), dtype, ("embed", "ffn"))
+        self.down = init.dense((dff, d), dtype, ("ffn", "embed"))
 
 
 def init_slstm_state(B: int, d: int, device=None) -> dict:
@@ -203,7 +209,8 @@ def _slstm_step(xproj, r, state, num_heads: int):
     return h_new, {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
 
 
-def slstm_apply(p: SLSTM, x, num_heads: int, *, state: dict | None = None):
+def slstm_apply(p: SLSTM, x, num_heads: int, ctx: ShardCtx | None = None,
+                *, state: dict | None = None):
     """x: [B, S, d] -> (y, new_state).  Sequential over S (true
     recurrence)."""
     B, S, d = x.shape
@@ -218,4 +225,5 @@ def slstm_apply(p: SLSTM, x, num_heads: int, *, state: dict | None = None):
     hs = torch.stack(hs, dim=1).to(x.dtype)
     # gated up/down projection FFN (proj factor 4/3)
     gate, up = (hs @ p.up).chunk(2, dim=-1)
-    return (gelu(gate) * up) @ p.down, state
+    y = (gelu(gate) * up) @ p.down
+    return (ctx or DISABLED).constrain(y, ("batch", "seq", "embed")), state

@@ -9,7 +9,9 @@ file format.
     stepping (emergency saves on SIGTERM flush synchronously, after a
     pending save); ``close`` finishes it and stops the thread;
   * restore copies into an existing state's tensors, on whatever device
-    its model lives.
+    its model lives; with ``shardings`` (elastic re-sharding) it also
+    splits each full array over the lanes of its mesh by its spec, which
+    need not be the mesh it was saved from.
 
 The npz holds what the reference's ``CheckpointManager`` writes for the
 same state: its leaf names, its stacked shapes, its dtypes (bf16 stored
@@ -34,6 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.dist import spmd
 from repro_torch.models.convert import to_numpy, to_tensor
 from repro_torch.train.train_step import TrainState
 
@@ -147,14 +150,23 @@ class CheckpointManager:
             return int(json.load(f)["step"])
 
     @torch.no_grad()
-    def restore(self, state, step: int | None = None):
+    def restore(self, state, step: int | None = None, shardings=None):
         """Copy checkpoint ``step`` (default: the latest) into ``state``'s
         tensors in place, casting to their dtypes; -> (state, step), or
         None when there is no checkpoint.  A leaf missing from the file
-        raises ``KeyError``; leaves the state lacks are ignored."""
+        raises ``KeyError``; leaves the state lacks are ignored.
+
+        ``shardings``: for a nested dict ``state``, a tree of the same
+        keys whose leaves are ``dist.context.NamedSharding`` (or None).
+        Each such leaf comes back split over its mesh's lanes
+        (``dist.spmd.shard``: a lanes array) instead of whole: the
+        elastic re-sharding of the reference's ``restore``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
+        if shardings is not None and isinstance(state, TrainState):
+            raise TypeError("shardings re-split a nested dict state; a "
+                            "TrainState lives on its model's device")
         path = self.dir / f"step_{step:08d}.npz"
         with np.load(path) as z:
             for name, (parts, stacked) in _entries(state).items():
@@ -165,4 +177,20 @@ class CheckpointManager:
                                          f"{tuple(v.shape)}, state "
                                          f"{tuple(t.shape)}")
                     t.copy_(v)
-        return state, step
+        if shardings is None:
+            return state, step
+        return _split(state, shardings), step
+
+
+def _split(tree: dict, shardings: dict) -> dict:
+    """``tree``'s leaves split by the same keys' NamedShardings."""
+    out = {}
+    for key, val in tree.items():
+        sh = shardings.get(key)
+        if isinstance(val, dict):
+            out[key] = _split(val, sh or {})
+        elif sh is None:
+            out[key] = val
+        else:
+            out[key] = spmd.shard(val, sh.spec, sh.mesh)
+    return out

@@ -34,6 +34,8 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.train, repro_torch.train.checkpoint\n"
         "import repro_torch.train.data, repro_torch.launch.train\n"
+        "import repro_torch.dist.spmd, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.shapes\n"
         "from repro_torch.serve import ServeEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -67,6 +69,31 @@ def test_train_cli_without_device_needs_cuda():
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
     assert "step" not in out.stdout
+
+
+def test_mesh_without_device_needs_cuda():
+    """``make_mesh(..., devices="cuda")`` wants one GPU a lane and raises
+    with fewer; ``launch.train --mesh`` wants the GPUs unless given
+    ``--device cpu``, and trains nothing on the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("four GPUs are present: the default lanes are usable")
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
+        make_mesh((2, 2), ("data", "model"), devices="cuda")
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
+        make_mesh((2, 2), ("data", "model"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "mixtral-8x22b", "--reduced", "--steps", "1", "--batch", "4",
+           "--seq", "8", "--mesh", "2x2"]
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         env={"PYTHONPATH": SRC}, timeout=120)
+    assert out.returncode != 0
+    assert "needs 4 CUDA devices" in out.stderr
+    assert "step" not in out.stdout
+    out = subprocess.run(cmd + ["--device", "cpu"], capture_output=True,
+                         text=True, env={"PYTHONPATH": SRC}, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "done: 1 steps" in out.stdout
 
 
 def test_use_kernel_true_on_cpu_raises(graph_store):

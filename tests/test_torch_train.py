@@ -297,8 +297,13 @@ def _opt_case(name, dtype, shapes, grad_scale, steps, layer_scales=None,
         return tree
 
     params = ref_tree(vals)
+    # the port's parameters get storage of their own (``torch.tensor``
+    # copies): ``jnp.asarray`` may alias a 64-byte-aligned numpy array,
+    # and the reference's jitted update reads it asynchronously, so an
+    # in-place write by the port into shared memory could land before
+    # that read
     leaves = sorted(
-        (Leaf(p, tuple(torch.nn.Parameter(torch.from_numpy(x).to(td))
+        (Leaf(p, tuple(torch.nn.Parameter(torch.tensor(x, dtype=td))
                        for x in (v if p.startswith("group") else [v])),
               p.startswith("group")) for p, v in vals.items()),
         key=lambda leaf: leaf.path.split("/"))
