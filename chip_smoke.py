@@ -164,6 +164,17 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    repeated to 2; (d) ``python -m repro_torch.launch.train --mesh 2x2``
    with the four lanes on the card, ``MESH_CLI_STEPS`` steps, its loss
    falling.  The phase launches no SpMV kernel.
+14. dry run — ``launch.dryrun.trace_cell`` of phase 12's cell (gemma-2b
+   at full width, B = 4 x S = 512, AdamW with float32 masters, remat
+   "nothing") on one ``meta`` lane, beside phase 12's real step on the
+   card: its FLOPs equal ``FlopCounterMode`` over one more of phase 12's
+   steps (the batch as int32, the reference's and the dry run's dtype),
+   its argument bytes equal the bytes of the real state and batch, and
+   argument + temp bytes within ``DRYRUN_PEAK_RTOL`` (5%) of phase 12's
+   measured peak (``torch.cuda.max_memory_allocated`` above what was
+   held before the model).  It runs no production-mesh cell and no
+   subprocess (a meta trace needs no card), must end within
+   ``DRYRUN_SECONDS`` (60 s), and launches no SpMV kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -260,6 +271,11 @@ LONG_BATCH, LONG_PROMPT = 2, 1024  # (b): prefill, then LONG_STEPS greedy
 LONG_CACHE, LONG_STEPS = 1152, 16  # steps; 1152 = 4 lanes x 288 slots
 MESH_CARD_CPU_TOL = 1e-4       # (c): atol and rtol, float32 (phase 12's)
 MESH_CLI_STEPS = 8             # (d)
+# phase 14: the dry run's argument + temp bytes on one meta lane against
+# phase 12's measured peak (the caching allocator rounds each block up, and
+# the peak holds a second batch); and its time budget
+DRYRUN_PEAK_RTOL = 0.05
+DRYRUN_SECONDS = 60.0
 
 
 def log(msg: str) -> None:
@@ -2750,6 +2766,7 @@ def train_full_width(torch, card: str) -> dict:
         f"the model; {card}")
     out.update(optimizer_time(torch, model, state, batches[0], opt, out))
     out.update(profile_train_step(torch, step, state, batches[0], step_s))
+    out.update(real_step_counts(torch, step, state, batches[0]))
     del model, state, step, batches
     torch.cuda.empty_cache()
     return out
@@ -2809,6 +2826,27 @@ def profile_train_step(torch, step, state, batch, step_s: float) -> dict:
     for us, key, count in sorted(device, reverse=True)[:8]:
         log(f"train:   {us / 1e3:8.2f} ms  x{count:<5d} {key[:90]}")
     return {"device_ms": busy_ms, "device_ops": ops, "matmul_ms": mm_ms}
+
+
+def real_step_counts(torch, step, state, batch) -> dict:
+    """One more step under ``FlopCounterMode``, and the bytes of the real
+    state and batch, for phase 14's dry run to match.  The batch goes in
+    as int32, the dtype of ``SyntheticLM``'s, the reference's and the dry
+    run's batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    batch = {k: v.to(torch.int32) for k, v in batch.items()}
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    tensors = ([t for leaf in state.params for t in leaf.tensors]
+               + [state.opt["step"], state.step]
+               + [t for st in state.opt["ema"].values() for t in st.values()])
+    return {"step_flops": fc.get_total_flops(),
+            "state_bytes": sum(t.numel() * t.element_size()
+                               for t in tensors),
+            "batch_bytes": sum(t.numel() * t.element_size()
+                               for t in batch.values())}
 
 
 def train_card_vs_cpu(torch) -> dict:
@@ -3294,6 +3332,58 @@ def phase_mesh(torch, card: str, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the dry run
+# --------------------------------------------------------------------------
+def phase_dry_run(torch, card: str, train: dict) -> dict:
+    """Phase 14: phase 12's cell traced on one meta lane against phase
+    12's real step: FLOPs and argument bytes equal, argument + temp
+    within ``DRYRUN_PEAK_RTOL`` of the measured peak.  It must launch no
+    SpMV kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.spmv import cuda
+    from repro_torch.launch.dryrun import analyze, trace_cell
+    from repro_torch.launch.shapes import ShapeSpec
+
+    before = dict(cuda.launches)
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    rec = analyze(trace_cell(cfg, ShapeSpec("phase12", "train", TRAIN_SEQ,
+                                            TRAIN_BATCH), None,
+                             unroll=False, opt_name="adamw"))
+    seconds = time.perf_counter() - t0
+    mem = rec["memory"]
+    args, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+    real_args = train["state_bytes"] + train["batch_bytes"]
+    peak = train["peak_gb"] * 1e9
+    gap = (args + temp) / peak - 1
+    check(rec["flops"] == train["step_flops"],
+          f"dryrun: meta FLOPs {rec['flops']} != FlopCounterMode over the "
+          f"real step {train['step_flops']}")
+    check(args == real_args,
+          f"dryrun: meta argument bytes {args} != the real state + batch "
+          f"{real_args}")
+    check(abs(gap) <= DRYRUN_PEAK_RTOL,
+          f"dryrun: argument + temp {(args + temp) / 1e9:.3f} GB is "
+          f"{gap:+.2%} of phase 12's peak {train['peak_gb']:.3f} GB")
+    eight_nt = 8 * train["params"] * TRAIN_BATCH * TRAIN_SEQ
+    log(f"dryrun: {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} AdamW + fp32 "
+        f"masters, remat, traced on one meta lane in {seconds:.1f}s: FLOPs "
+        f"{rec['flops']:.6e} equal FlopCounterMode over phase 12's step on "
+        f"the card (8 N T = {eight_nt:.6e}, ratio "
+        f"{rec['flops'] / eight_nt:.4f}); argument bytes {args} equal the "
+        f"real state + batch; argument + temp {(args + temp) / 1e9:.3f} GB "
+        f"(temp {temp / 1e9:.3f} GB, outputs "
+        f"{mem['output_size_in_bytes'] / 1e9:.3f} GB) against phase 12's "
+        f"measured peak {train['peak_gb']:.3f} GB ({gap:+.2%}, tolerance "
+        f"{DRYRUN_PEAK_RTOL:.0%}); {card}")
+    check(dict(cuda.launches) == before,
+          f"dryrun: SpMV launches moved: {before} -> {dict(cuda.launches)}")
+    log("dryrun: no SpMV kernel launched")
+    return {"flops": rec["flops"], "arguments": args, "temp": temp,
+            "gap": gap, "trace_seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3375,12 +3465,20 @@ def main() -> int:
         log(f"llm: all checks passed in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phase_train(torch, card, tmp)
+        train = phase_train(torch, card, tmp)
         log(f"train: all checks passed in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         phase_mesh(torch, card, torch.device("cuda", 0))
         log(f"mesh: all checks passed in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_dry_run(torch, card, train)
+        seconds = time.perf_counter() - t0
+        check(seconds <= DRYRUN_SECONDS,
+              f"dryrun: phase 14 took {seconds:.1f}s, over its "
+              f"{DRYRUN_SECONDS:.0f}s budget")
+        log(f"dryrun: all checks passed in {seconds:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)

@@ -128,21 +128,50 @@ class Mesh:
                 f"{sorted({str(d) for d in self.devices.flat})})")
 
 
+class DuplicateSpecError(ValueError):
+    """A spec maps one mesh axis to more than one dim (jax's error of the
+    same name)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec over a mesh.  As jax's, it refuses a spec that names an
-    axis the mesh lacks, or one axis for more than one dim."""
+    axis the mesh lacks (``ValueError``), or one axis for more than one
+    dim (``DuplicateSpecError``)."""
     mesh: Mesh
     spec: PartitionSpec
 
     def __post_init__(self):
         used = [a for entry in self.spec for a in _axes_tuple(entry)]
         unknown = set(used) - set(self.mesh.axis_names)
-        if unknown or len(used) != len(set(used)):
+        if unknown:
             raise ValueError(f"spec {self.spec} over mesh axes "
-                             f"{self.mesh.axis_names}: "
-                             + (f"unknown axes {sorted(unknown)}" if unknown
-                                else "an axis maps more than one dim"))
+                             f"{self.mesh.axis_names}: unknown axes "
+                             f"{sorted(unknown)}")
+        if len(used) != len(set(used)):
+            raise DuplicateSpecError(f"spec {self.spec} over mesh axes "
+                                     f"{self.mesh.axis_names}: an axis maps "
+                                     f"more than one dim")
+
+    def shard_shape(self, global_shape) -> tuple[int, ...]:
+        """One lane's shape of a ``global_shape`` array under this spec,
+        as jax's ``NamedSharding.shard_shape``: a dim split over axes of
+        total size n is divided by n, and a dim that n does not divide
+        raises ``ValueError``."""
+        global_shape = tuple(global_shape)
+        if len(self.spec) > len(global_shape):
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"shape {global_shape} has dims")
+        out = list(global_shape)
+        for i, entry in enumerate(self.spec):
+            n = math.prod(self.mesh.shape[a] for a in _axes_tuple(entry))
+            if out[i] % n:
+                raise ValueError(
+                    f"sharding {self.spec} over mesh {self.mesh.shape} "
+                    f"splits dim {i} of {global_shape} {n} ways, which "
+                    f"does not divide it")
+            out[i] //= n
+        return tuple(out)
 
 
 # a rule value: one mesh axis name, a tuple of them (e.g. ('pod', 'data')),

@@ -13,9 +13,18 @@ Every collective computes its result once per group of lanes, in the
 order of the lanes' index along the reduced axes, and hands that result to
 each lane of the group: every lane holds the same value, as an all-reduce
 gives.
+
+``count_collectives()`` records, while it is active, each collective's
+per-lane result bytes by the kind names of XLA's HLO (``psum`` and
+``pmax`` are an ``all-reduce``, ``pmean`` its ``psum`` once,
+``all_to_all`` an ``all-to-all``), and the bytes of each one's
+transpose when autograd runs it backward (the gradient of a lane's
+result, under the same kind).  Inactive, it costs one test a call.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Callable
 
@@ -23,6 +32,39 @@ import numpy as np
 import torch
 
 from repro_torch.dist.context import Mesh, PartitionSpec
+
+
+# the active counter of this thread or task, if any
+_counts: contextvars.ContextVar[dict[str, int] | None] = \
+    contextvars.ContextVar("collective_counts", default=None)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """-> a dict {kind: per-lane result bytes} that the collectives run
+    inside the block (and their backward passes) add to.  A lane's bytes
+    are those of lane 0's result: every lane of a mesh joins each
+    collective with a result of the same shape."""
+    counts: dict[str, int] = {}
+    token = _counts.set(counts)
+    try:
+        yield counts
+    finally:
+        _counts.reset(token)
+
+
+def _record(kind: str, out: np.ndarray) -> np.ndarray:
+    counts = _counts.get()
+    if counts is None:
+        return out
+    lane = out.flat[0]
+    counts[kind] = counts.get(kind, 0) + lane.numel() * lane.element_size()
+    if lane.requires_grad:
+        def backward(grad):
+            counts[kind] = counts.get(kind, 0) + \
+                grad.numel() * grad.element_size()
+        lane.register_hook(backward)
+    return out
 
 
 def _axes(entry) -> tuple[str, ...]:
@@ -147,12 +189,12 @@ def _reduce(parts: np.ndarray, axes, mesh: Mesh, op) -> np.ndarray:
 
 def psum(parts: np.ndarray, axes, mesh: Mesh) -> np.ndarray:
     """``jax.lax.psum`` over one mesh axis or a tuple of them."""
-    return _reduce(parts, axes, mesh, torch.add)
+    return _record("all-reduce", _reduce(parts, axes, mesh, torch.add))
 
 
 def pmax(parts: np.ndarray, axes, mesh: Mesh) -> np.ndarray:
     """``jax.lax.pmax``: the elementwise maximum over the axes."""
-    return _reduce(parts, axes, mesh, torch.maximum)
+    return _record("all-reduce", _reduce(parts, axes, mesh, torch.maximum))
 
 
 def pmean(parts: np.ndarray, axes, mesh: Mesh) -> np.ndarray:
@@ -180,4 +222,4 @@ def all_to_all(parts: np.ndarray, axis: str, split_axis: int,
             out[dst] = torch.cat(
                 [parts[src].narrow(split_axis, k * size, size).to(dev)
                  for src in group], concat_axis)
-    return out
+    return _record("all-to-all", out)

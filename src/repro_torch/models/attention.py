@@ -54,9 +54,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, fraction: float,
         # M-RoPE: the rot/2 frequency slots split into (t, h, w) sections,
         # each driven by its own position stream
         assert sum(mrope_sections) == rot // 2, (mrope_sections, rot)
+        # output_size: a fixed shape, so no value is read back (and the
+        # op runs on ``meta`` tensors)
         sec_id = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))
+            torch.tensor(mrope_sections, device=x.device),
+            output_size=sum(mrope_sections))
         ang = positions[..., sec_id].float() * inv   # [B, S, rot/2]
     else:
         ang = positions[..., None].float() * inv

@@ -155,7 +155,8 @@ def _init_cache_block(desc, cfg: ArchConfig, batch: int, cache_len: int,
                              device=device),
         }
         if cfg.sliding_window:
-            c["attn"]["pos"] = torch.full((slen,), -1, dtype=torch.int64,
+            # int32, as the reference's ring positions
+            c["attn"]["pos"] = torch.full((slen,), -1, dtype=torch.int32,
                                           device=device)
     elif mixer == "mamba":
         c["mamba"] = init_mamba_state(cfg, batch, dtype, device)

@@ -227,3 +227,9 @@ def slstm_apply(p: SLSTM, x, num_heads: int, ctx: ShardCtx | None = None,
     gate, up = (hs @ p.up).chunk(2, dim=-1)
     y = (gelu(gate) * up) @ p.down
     return (ctx or DISABLED).constrain(y, ("batch", "seq", "embed")), state
+
+
+def slstm_step_flops(d: int, num_heads: int) -> int:
+    """Analytic per-step FLOPs of the recurrent part (for the roofline)."""
+    dh = d // num_heads
+    return 2 * num_heads * dh * 4 * dh + 12 * d  # recurrent matvec + gates
