@@ -70,10 +70,12 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    depth 2 raises ``ConcurrentMutationError`` and the next run finishes at
    the new epoch; (g) a weighted int8 store of RMAT scale ``SMALL_SCALE``
    (18), mutable: 4,096 weighted inserts, then ``run_incremental("sssp")``
-   through B1 and through the plain version, bitwise equal to each other
-   and to cold runs.  ``run_incremental("label_propagation")`` joins (b).
-   The phase's launches must equal the shards its runs processed (B2: the
-   gather + fold sssp);
+   through B1, through the gather + fold kernel (B2) and through the plain
+   version, bitwise equal to each other and to cold runs of each; then the
+   same for a weighted float16 store, with its seconds printed.
+   ``run_incremental("label_propagation")`` joins (b).  The phase's
+   launches must equal the shards its runs processed (B2: the gather +
+   fold sssp runs);
 9. zoo and baselines — on a warm session: (a) label_propagation and kcore
    (k = 2) through B1, B2 and the plain version, values and
    ``IterationStats`` bitwise equal; (b) ``run_batch`` of lp over phase 5's
@@ -175,6 +177,16 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    held before the model).  It runs no production-mesh cell and no
    subprocess (a meta trace needs no card), must end within
    ``DRYRUN_SECONDS`` (60 s), and launches no SpMV kernel.
+15. examples — the four ``repro_torch.examples`` twins' ``main`` in this
+   process, once each on the card: quickstart (RMAT scale 14),
+   graph_analytics ``--scale 14``, serve_lm at its defaults (mixtral-8x22b
+   reduced) and train_tiny_lm ``--steps 30``, each with its own checks.
+   The two graph twins also run with ``--device cpu`` (the plain version)
+   first: their exact runs, quickstart's K = 8 landmark batch and every
+   ``IterationStats`` bitwise equal, PageRank to ``PR_RTOL``.  B1's
+   launches (K = 1 and K = 8) must equal the shards the card's runs
+   processed; serve_lm and train_tiny_lm launch no SpMV kernel.  No
+   subprocess; the phase must end within ``EXAMPLES_SECONDS`` (45 s).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -223,7 +235,7 @@ REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
             "ell_fold_batch": "src/repro/kernels/spmv/spmv.py:221",
             "ell_gather_fold": "src/repro/kernels/spmv/spmv.py:276"}
 LANES = 2                      # phase 7: lanes, and the D = S of the tiling
-SMALL_SCALE = 18               # phase 8's int8 store, phase 9's baselines
+SMALL_SCALE = 18               # phase 8 (g)'s stores, phase 9's baselines
 ZOO_ITERS = 30                 # phase 9: the cap on every zoo run
 TRACE_SECONDS = 12.0           # phase 10: the scale-22 trace's length
 SMALL_EVENTS = 32              # phase 10 (d): the trace the cpu session
@@ -276,6 +288,7 @@ MESH_CLI_STEPS = 8             # (d)
 # the peak holds a second batch); and its time budget
 DRYRUN_PEAK_RTOL = 0.05
 DRYRUN_SECONDS = 60.0
+EXAMPLES_SECONDS = 45.0        # phase 15's budget, its CPU runs included
 
 
 def log(msg: str) -> None:
@@ -1481,7 +1494,8 @@ def phase_storage(torch, store_path: str, solo, sources) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     storage_backends(store_path, packed, solo, observe)
     mutable_graph(packed, sources, observe, shards, kernel)
-    quantized_mutation(Path(store_path).parent, observe, kernel)
+    for dtype in ("int8", "float16"):
+        quantized_mutation(Path(store_path).parent, observe, kernel, dtype)
     launches = dict(cuda.launches)
     fused = launches["ell_spmv_fused"] + launches["ell_spmv_fused_batch"]
     check(fused == shards["fused"] > 0
@@ -1838,57 +1852,71 @@ def small_store(tmp: Path, name: str, weighted: bool = False,
     return str(tmp / name)
 
 
-def quantized_mutation(tmp: Path, observe, kernel) -> None:
-    """(g) A weighted int8 store at SMALL_SCALE, mutable: a monotone commit
-    of 4,096 weighted inserts, then ``run_incremental("sssp")`` through B1
-    and through the plain version on the card, bitwise equal to each other
-    and to cold runs of both."""
+def quantized_mutation(tmp: Path, observe, kernel, dtype: str) -> None:
+    """(g) A weighted store of ``dtype`` edges (int8, float16) at
+    SMALL_SCALE, mutable: a monotone commit of 4,096 weighted inserts, then
+    ``run_incremental("sssp")`` through B1, through the gather + fold route
+    (B2) and through the plain version on the card, bitwise equal to each
+    other and to cold runs of each; its seconds are printed."""
     import numpy as np
 
     from repro_torch.session import GraphSession
 
     t0 = time.perf_counter()
-    path = small_store(tmp, "int8_store", weighted=True, val_dtype="int8",
+    path = small_store(tmp, f"{dtype}_store", weighted=True, val_dtype=dtype,
                        threshold_edge_num=1 << SMALL_SCALE)
-    log(f"quantized: weighted RMAT scale {SMALL_SCALE} preprocessed to int8 "
+    log(f"quantized: {dtype}: weighted RMAT scale {SMALL_SCALE} preprocessed "
         f"in {time.perf_counter() - t0:.1f}s")
     with GraphSession(path, mutable=True, cache_mode=1,
                       cache_budget_bytes=CACHE_BUDGET) as s:
-        check(s.store.properties.get("val_dtype") == "int8",
-              f"the store's edges are {s.store.properties.get('val_dtype')}")
+        check(s.store.properties.get("val_dtype") == dtype,
+              f"the store's edges are {s.store.properties.get('val_dtype')}, "
+              f"not {dtype}")
         s.iteration_observers.append(observe)
-        plain_cfg = s.config.replace(use_kernel=False)
-        prev = s.run("sssp", source=0)
-        kernel[0] = "none"
-        prev_plain = s.run("sssp", source=0, config=plain_cfg)
-        kernel[0] = "fused"
-        check(np.array_equal(prev.values, prev_plain.values),
-              "int8 sssp differs from the plain version before the commit")
+        # the counter each route's shards go to (see phase_storage)
+        routes = {"fused": s.config,
+                  "fold": s.config.replace(fused_gather=False),
+                  "none": s.config.replace(use_kernel=False)}
+
+        def sssp(route, run, **kw):
+            kernel[0] = route
+            try:
+                return run("sssp", source=0, config=routes[route], **kw)
+            finally:
+                kernel[0] = "fused"
+
+        prev = {r: sssp(r, s.run) for r in routes}
+        for r in ("fold", "none"):
+            check(np.array_equal(prev["fused"].values, prev[r].values),
+                  f"{dtype} sssp through {r} differs from B1 before the "
+                  "commit")
         rng = np.random.default_rng(3)
         targets = sorted(int(p) for p in rng.choice(s.store.num_shards, 4,
                                                     replace=False))
         src, dst = _new_edges(np, s, rng, 4096, targets)
         w = (rng.random(src.size) * 9 + 1).astype(np.float32)
         s.apply_mutations(inserts=(src, dst, w))
-        inc = s.run_incremental("sssp", source=0, prev=prev)
-        cold = s.run("sssp", source=0)
-        kernel[0] = "none"
-        inc_plain = s.run_incremental("sssp", source=0, prev=prev_plain,
-                                      config=plain_cfg)
-        cold_plain = s.run("sssp", source=0, config=plain_cfg)
-        kernel[0] = "fused"
-    log(_run_line("quantized: int8 incremental sssp", inc, ("cold", cold)))
-    for what, r in (("plain incremental", inc_plain), ("cold", cold),
-                    ("plain cold", cold_plain)):
-        check(np.array_equal(inc.values, r.values),
-              f"int8 incremental sssp differs from the {what} run")
-    check(inc.iterations == inc_plain.iterations <= cold.iterations
-          and np.isfinite(inc.values).sum() > 1,
-          f"int8 incremental sssp: {inc.iterations} iterations, plain "
-          f"{inc_plain.iterations}, cold {cold.iterations}")
-    log(f"quantized: int8 run_incremental sssp after 4096 weighted inserts "
-        f"into shards {targets} equals the plain version and cold runs "
-        f"bitwise; {int(np.isfinite(inc.values).sum())} vertices reached")
+        inc = {r: sssp(r, s.run_incremental, prev=prev[r]) for r in routes}
+        cold = {r: sssp(r, s.run) for r in routes}
+    seconds = time.perf_counter() - t0
+    log(_run_line(f"quantized: {dtype} incremental sssp", inc["fused"],
+                  ("cold", cold["fused"])))
+    for runs, what in ((inc, "incremental"), (cold, "cold")):
+        for r, got in runs.items():
+            check(np.array_equal(inc["fused"].values, got.values),
+                  f"{dtype} incremental sssp through B1 differs from the "
+                  f"{what} run through {r}")
+    check(len({r.iterations for r in inc.values()}) == 1
+          and inc["fused"].iterations <= cold["fused"].iterations
+          and np.isfinite(inc["fused"].values).sum() > 1,
+          f"{dtype} incremental sssp: iterations "
+          f"{[r.iterations for r in inc.values()]}, cold "
+          f"{cold['fused'].iterations}")
+    log(f"quantized: {dtype}: run_incremental sssp after 4096 weighted "
+        f"inserts into shards {targets} through B1, B2 and the plain version "
+        f"equals cold runs of each bitwise; "
+        f"{int(np.isfinite(inc['fused'].values).sum())} vertices reached; "
+        f"{seconds:.1f}s")
 
 
 # --------------------------------------------------------------------------
@@ -3384,6 +3412,107 @@ def phase_dry_run(torch, card: str, train: dict) -> dict:
             "gap": gap, "trace_seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the examples' twins
+# --------------------------------------------------------------------------
+def _twin(name: str, argv: list):
+    """``repro_torch.examples.<name>.main(argv)`` in this process, its
+    printed lines logged under ``examples: <name>:``."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"repro_torch.examples.{name}").main
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"examples: {name}: {line}")
+
+
+def _graph_twin_checks(np, name: str, got: dict, want: dict) -> dict:
+    """A graph twin's card runs against its CPU runs: exact runs (and the
+    batch) bitwise with their ``IterationStats``, PageRank to PR_RTOL.
+    Returns the shards the card's runs processed, single-column and
+    batched."""
+    shards = {"single": 0, "batch": 0}
+    for key, r in got.items():
+        if key == "bfs":  # the IterationStats that iter_run yielded
+            hist, want_hist = r, want[key]
+        else:
+            hist, want_hist = r.history, want[key].history
+            if key in ("pagerank", "full", "checkpointed", "resumed"):
+                rel = _max_rel_err(np, r.values, want[key].values)
+                check(rel <= PR_RTOL, f"examples: {name} {key}: off the "
+                      f"CPU's by {rel} (rtol {PR_RTOL})")
+            else:
+                check(np.array_equal(r.values, want[key].values),
+                      f"examples: {name} {key}: values differ from the CPU's")
+        check([tuple(getattr(h, f) for f in EXACT_FIELDS) for h in hist]
+              == [tuple(getattr(h, f) for f in EXACT_FIELDS)
+                  for h in want_hist],
+              f"examples: {name} {key}: IterationStats differ from the CPU's")
+        shards["batch" if key == "batch" else "single"] += sum(
+            h.shards_processed for h in hist)
+    return shards
+
+
+def phase_examples(torch) -> dict:
+    """Phase 15: the four examples' twins in this process on the card.  The
+    graph twins' runs equal their ``--device cpu`` runs (exact apps bitwise
+    with their IterationStats, PageRank to PR_RTOL) and launch B1 once a
+    processed shard (K = 1, and K = 8 for quickstart's batch); serve_lm and
+    train_tiny_lm run their own checks and launch no SpMV kernel.  Returns
+    the phase's launch counts (set to 0 before the card's runs)."""
+    import numpy as np
+
+    from repro_torch.kernels.spmv import cuda
+
+    graph = (("quickstart", []), ("graph_analytics", ["--scale", "14"]))
+    cpu = {}
+    for name, argv in graph:
+        t0 = time.perf_counter()
+        cpu[name] = _twin(name, argv + ["--device", "cpu"])
+        log(f"examples: {name} --device cpu (the plain version) in "
+            f"{time.perf_counter() - t0:.1f}s")
+    cuda.reset_launches()
+    shards = {"single": 0, "batch": 0}
+    for name, argv in graph:
+        t0 = time.perf_counter()
+        got = _twin(name, argv + ["--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        for k, v in _graph_twin_checks(np, name, got, cpu[name]).items():
+            shards[k] += v
+        log(f"examples: {name} on the card in {seconds:.1f}s: exact runs "
+            "and every IterationStats bitwise equal to --device cpu, "
+            f"PageRank within {PR_RTOL}")
+    launches = dict(cuda.launches)
+    check(launches["ell_spmv_fused"] == shards["single"] > 0
+          and launches["ell_spmv_fused_batch"] == shards["batch"] > 0
+          and launches["ell_fold"] == launches["ell_fold_batch"]
+          == launches["ell_gather_fold"] == 0,
+          f"examples: launches {launches}, expected {shards['single']} "
+          f"ell_spmv_fused and {shards['batch']} ell_spmv_fused_batch")
+    t0 = time.perf_counter()
+    toks = _twin("serve_lm", ["--device", "cuda"])
+    check(toks.shape == (4, 48), f"examples: serve_lm tokens {toks.shape}")
+    t1 = time.perf_counter()
+    losses = _twin("train_tiny_lm", ["--steps", "30", "--device", "cuda"])
+    check(len(losses) == 30 and bool(np.isfinite(losses).all()),
+          f"examples: train_tiny_lm losses {losses}")
+    log(f"examples: serve_lm (mixtral-8x22b reduced, 4 x 48 greedy tokens, "
+        f"twice, equal) in {t1 - t0:.1f}s; train_tiny_lm 30 steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, in "
+        f"{time.perf_counter() - t1:.1f}s")
+    check(dict(cuda.launches) == launches,
+          f"examples: serve_lm or train_tiny_lm moved the SpMV launches: "
+          f"{launches} -> {dict(cuda.launches)}")
+    log("examples: serve_lm and train_tiny_lm launched no SpMV kernel")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3479,17 +3608,26 @@ def main() -> int:
               f"dryrun: phase 14 took {seconds:.1f}s, over its "
               f"{DRYRUN_SECONDS:.0f}s budget")
         log(f"dryrun: all checks passed in {seconds:.1f}s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        examples_launches = phase_examples(torch)
+        seconds = time.perf_counter() - t0
+        check(seconds <= EXAMPLES_SECONDS,
+              f"examples: phase 15 took {seconds:.1f}s, over its "
+              f"{EXAMPLES_SECONDS:.0f}s budget")
+        log(f"examples: all checks passed in {seconds:.1f}s")
     finally:
         build_thread.join()
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
     # launches: run (K = 1), run_batch (K = 16), spmv_2d (B4), the storage
-    # and mutation phase's (K = 1 and the service's batches), the zoo's and
-    # the telemetry replays'
+    # and mutation phase's (K = 1 and the service's batches), the zoo's,
+    # the telemetry replays' and the examples' twins'
     for name, rec in records.items():
         rec["launches"] = ((batch_launches if name.endswith("_batch")
                             else launches)[name] + storage_launches[name]
-                           + zoo_launches[name] + telemetry_launches[name])
+                           + zoo_launches[name] + telemetry_launches[name]
+                           + examples_launches[name])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f}s")
     print(json.dumps({"kernels": list(records.values())}))

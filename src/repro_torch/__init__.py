@@ -29,3 +29,14 @@ from repro_torch.graph.source import (ConcurrentMutationError,  # noqa: F401
                                       MissingGraphError, ShardSource)
 from repro_torch.graph.storage import GraphStore, write_edge_list  # noqa: F401
 from repro_torch.session import GraphSession  # noqa: F401
+
+__all__ = sorted([
+    "BatchRunResult", "BatchedVertexProgram", "CompactionReport",
+    "CompressedShardCache", "ConcurrentMutationError", "DeltaBudgetError",
+    "DeltaGraphStore", "EngineConfig", "GraphSession", "GraphStore",
+    "IterationStats", "MemoryGraphStore", "MissingGraphError",
+    "PackedGraphStore", "RunResult", "ShardPipeline", "ShardSource",
+    "VSWEngine", "VertexProgram", "available_apps", "compact", "get_app",
+    "materialize", "pack_graph", "preprocess_graph", "register_app",
+    "rmat_edges", "uniform_edges", "write_edge_list", "zipf_edges",
+])

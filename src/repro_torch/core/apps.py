@@ -790,3 +790,8 @@ def list_apps() -> tuple[AppInfo, ...]:
             infos.append(AppInfo(name=name, kind="alias", incremental=False,
                                  family=spec.family))
     return tuple(sorted(infos, key=lambda i: i.name))
+
+
+# Deprecated alias: the live registry itself (mutations via register_app
+# are visible here and vice versa).  Prefer get_app()/register_app.
+APPS = _REGISTRY

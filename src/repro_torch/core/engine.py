@@ -394,18 +394,25 @@ class BatchRunResult(RunResult):
         return [self.column(k) for k in range(self.num_columns)]
 
 
+_LEGACY_KWARGS = ("cache_mode", "cache_budget_bytes", "selective_threshold",
+                  "use_pallas", "preload", "prefetch_depth")
+
+
 class VSWEngine:
     """One vertex program bound to a graph store (Algorithm 2 executor).
 
     Normally built by ``GraphSession.engine``/``run``; ``VSWEngine(store,
-    program, config, device=...)`` builds a private cache.
+    program, config, device=...)`` builds a private cache.  The reference's
+    old keyword signature (``VSWEngine(store, prog, cache_mode=2, ...)``,
+    or a cache mode in the third place) is kept as a deprecated shim;
+    its ``use_pallas`` sets ``use_kernel``.
     """
 
     def __init__(
         self,
         store: ShardSource,
         program: VertexProgram,
-        config: EngineConfig | None = None,
+        config: EngineConfig | int | str | None = None,
         *,
         device: torch.device | str = "cuda",
         cache: CompressedShardCache | None = None,
@@ -415,7 +422,24 @@ class VSWEngine:
         n_pad: int | None = None,
         graph_epoch: int | None = None,
         observers: list | None = None,
+        **legacy,
     ):
+        if config is not None and not isinstance(config, EngineConfig):
+            # old positional cache_mode slot
+            legacy.setdefault("cache_mode", config)
+            config = None
+        unknown = set(legacy) - set(_LEGACY_KWARGS)
+        if unknown:
+            raise TypeError(f"unexpected VSWEngine arguments: {sorted(unknown)}")
+        if legacy:
+            warnings.warn(
+                "VSWEngine(cache_mode=..., cache_budget_bytes=..., ...) is "
+                "deprecated; pass an EngineConfig (or use GraphSession, which "
+                "shares one compressed cache across applications)",
+                DeprecationWarning, stacklevel=2)
+            if "use_pallas" in legacy:
+                legacy["use_kernel"] = legacy.pop("use_pallas")
+            config = (config or EngineConfig()).replace(**legacy)
         self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.store = store

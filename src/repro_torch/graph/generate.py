@@ -29,17 +29,30 @@ def rmat_edges(
     """
     n_edges = edge_factor << scale
     rng = np.random.default_rng(seed)
-    probs = np.array([a, b, c, 1.0 - a - b - c])
+    cdf = np.array([a, b, c, 1.0 - a - b - c]).cumsum()
+    cdf /= cdf[-1]
+    # ids fit int32 up to scale 31; half the bytes of int64 in every pass
+    word = np.int32 if scale <= 31 else np.int64
     emitted = 0
     while emitted < n_edges:
         m = min(chunk, n_edges - emitted)
-        src = np.zeros(m, dtype=np.int64)
-        dst = np.zeros(m, dtype=np.int64)
+        src = np.zeros(m, dtype=word)
+        dst = np.zeros(m, dtype=word)
+        q = np.empty(m, dtype=word)
+        bit = np.empty(m, dtype=word)
         for _ in range(scale):
-            q = rng.choice(4, size=m, p=probs)
-            src = (src << 1) | (q >> 1)
-            dst = (dst << 1) | (q & 1)
-        yield src, dst
+            # the quadrant rng.choice(4, size=m, p=probs) draws from the
+            # same stream: one uniform each, then the number of cdf
+            # entries <= it (cdf[3] is 1.0, above every uniform)
+            u = rng.random(m)
+            np.greater_equal(u, cdf[0], out=q, casting="unsafe")
+            q += u >= cdf[1]
+            q += u >= cdf[2]
+            src <<= 1
+            src |= np.right_shift(q, 1, out=bit)
+            dst <<= 1
+            dst |= np.bitwise_and(q, 1, out=bit)
+        yield src.astype(np.int64), dst.astype(np.int64)
         emitted += m
 
 

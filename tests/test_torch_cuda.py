@@ -651,3 +651,66 @@ def test_baselines_on_card_match_cpu(dev, tmp_path, engine, app):
         np.testing.assert_allclose(g, w, rtol=PPR_RTOL, atol=0)
     else:
         np.testing.assert_array_equal(g, w)
+
+
+def test_float16_mutable_store_on_card(dev, tmp_path):
+    """A weighted float16 store, mutable: after a commit of weighted
+    inserts, ``run_incremental("sssp")`` through B1, through the gather +
+    fold route (B2) and through the plain version are bitwise equal to
+    each other and to a cold run, B1 and B2 launching once a processed
+    shard (the float16 dequantisation of merged shards)."""
+    src, dst = materialize(rmat_edges(scale=12, edge_factor=8, seed=3))
+    write_edge_list(tmp_path / "el", [(src, dst)], weighted=True, seed=1)
+    preprocess_graph(str(tmp_path / "el"), str(tmp_path / "store"),
+                     val_dtype="float16", threshold_edge_num=4096)
+    rng = np.random.default_rng(3)
+    with GraphSession(str(tmp_path / "store"), device=dev,
+                      mutable=True) as s:
+        assert s.store.properties["val_dtype"] == "float16"
+        cfgs = {"ell_spmv_fused": s.config,
+                "ell_fold": s.config.replace(fused_gather=False),
+                None: s.config.replace(use_kernel=False)}
+        prev = {k: s.run("sssp", source=0, config=c) for k, c in cfgs.items()}
+        edges = _new_edges(s.store, rng, 256)
+        weights = rng.random(len(edges)) * 9 + 1
+        assert s.apply_mutations(inserts=[
+            (a, b, float(w)) for (a, b, _), w in zip(edges, weights)]) == 1
+        inc = {}
+        for name, cfg in cfgs.items():
+            cuda.reset_launches()
+            inc[name] = s.run_incremental("sssp", source=0, prev=prev[name],
+                                          config=cfg)
+            shards = sum(h.shards_processed for h in inc[name].history)
+            assert sum(cuda.launches.values()) == (shards if name else 0)
+            if name:
+                assert cuda.launches[name] == shards
+        cold = s.run("sssp", source=0)
+    for r in inc.values():
+        assert r.iterations == inc["ell_spmv_fused"].iterations
+        assert r.iterations <= cold.iterations
+        np.testing.assert_array_equal(r.values, cold.values)
+    assert np.isfinite(cold.values).sum() > 1
+
+
+def test_quickstart_twin_on_card_matches_cpu(dev):
+    """``python -m repro_torch.examples.quickstart``'s ``main`` on the
+    card against ``--device cpu``: sssp, cc and the landmark batch bitwise,
+    its 30-iteration PageRank to 5e-4 (``chip_smoke.py``'s ``PR_RTOL``)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import quickstart
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = quickstart.main(["--device", "cpu"])
+        cuda.reset_launches()
+        got = quickstart.main(["--device", "cuda"])
+    for key in ("sssp", "cc", "batch"):
+        assert got[key].iterations == want[key].iterations
+        np.testing.assert_array_equal(got[key].values, want[key].values)
+    np.testing.assert_allclose(got["pagerank"].values,
+                               want["pagerank"].values, rtol=5e-4)
+    assert cuda.launches["ell_spmv_fused"] == sum(
+        h.shards_processed for k in ("pagerank", "sssp", "cc")
+        for h in got[k].history)
+    assert cuda.launches["ell_spmv_fused_batch"] == sum(
+        h.shards_processed for h in got["batch"].history)

@@ -36,6 +36,10 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.train.data, repro_torch.launch.train\n"
         "import repro_torch.dist.spmd, repro_torch.launch.mesh\n"
         "import repro_torch.launch.shapes, repro_torch.launch.dryrun\n"
+        "import repro_torch.examples, repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.graph_analytics\n"
+        "import repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_tiny_lm\n"
         "from repro_torch.serve import ServeEngine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -1,9 +1,11 @@
-"""State that crosses the two packages: checkpoints and preprocessed stores.
+"""State that crosses the two packages: checkpoints, preprocessed stores
+and generated graphs.
 
 A checkpoint written by one package must resume in the other and finish
 with bitwise the values a cold run gives (the apps here are min-semiring
 apps, exact in any summation order).  A graph preprocessed by each package
-from the same edge list must decode to identical arrays.
+from the same edge list must decode to identical arrays, and both
+packages' RMAT generators must stream identical edges.
 """
 import json
 
@@ -11,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.graph.generate import rmat_edges as ref_rmat_edges
 from repro.graph.preprocess import preprocess_graph as ref_preprocess
 from repro.graph.storage import GraphStore as RefStore
 from repro.graph.storage import write_edge_list
 from repro.session import GraphSession as RefSession
+from repro_torch.graph.generate import rmat_edges
 from repro_torch.graph.preprocess import preprocess_graph
 from repro_torch.graph.storage import GraphStore
 from repro_torch.session import GraphSession
@@ -106,3 +110,20 @@ def test_state_round_trip():
         state_from_numpy(values, active, "cpu", n_pad=10)
     with pytest.raises(ValueError, match=r"\[n\]"):
         state_from_numpy(values, active[:-1], "cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scale=9, edge_factor=8, seed=7),
+    dict(scale=14, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0,
+         chunk=1 << 13),
+    dict(scale=5, edge_factor=3, a=0.45, b=0.15, c=0.15, seed=2, chunk=7),
+], ids=["conftest", "graph500-chunked", "skewed-odd-chunk"])
+def test_rmat_edges_match_reference(kw):
+    """The port draws each quadrant from the reference's random stream
+    without ``rng.choice``: the same chunks, int64, bitwise."""
+    got, want = list(rmat_edges(**kw)), list(ref_rmat_edges(**kw))
+    assert len(got) == len(want)
+    for (gs, gd), (ws, wd) in zip(got, want):
+        assert gs.dtype == gd.dtype == ws.dtype == np.int64
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gd, wd)
