@@ -142,30 +142,39 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    card, killed with SIGTERM after its first checkpoint and resumed to
    its 40th step, final loss below 7.0.  The phase launches no SpMV kernel.
 
-13. mesh — a mesh's lanes in one process, all on the one card: (a)
+13. mesh — a mesh's lanes in one process, all on the one card; a mesh
+   model holds every weight resident lane by lane (one piece a lane, cut
+   by ``param_sharding``) and runs as the reference's SPMD program: (a)
    ``MESH_ARCH`` (kimi-k2-1t-a32b) at its published width, depth cut to
    ``MESH_LAYERS`` (2: its dense first layer and one MoE layer), bf16,
    ``torch.Generator`` seed 0; the forward's logits and aux loss over B =
    ``MESH_BATCH`` (8) x S = ``MESH_SEQ`` (128) tokens (numpy seed 0)
    with no mesh and on a (data 2 x model 2) mesh with expert-parallel
-   'a2a', 'replicated' and the serve 2-D layout (the models share one
-   copy of the weights): all finite, the three mesh modes (the same local
-   tokens and capacity, 14 slots an expert: tokens dropped) agree to
+   'a2a', 'replicated' (these two share one copy of the pieces) and the
+   serve 2-D layout (its own pieces, drawn from the same seed), one model
+   on the card at a time: all finite, no lane's expert piece a view of
+   another lane's tensor, the three mesh modes (the same local tokens and
+   capacity, 14 slots an expert: tokens dropped) agree to
    ``MESH_BF16_TOL``; ms a forward for each, peak memory above what
-   phase 12 leaves, one profiled forward each; (b) the same model with
+   phase 12 leaves, one profiled forward each; (b) the same weights with
    ``long_context`` on (data 4 x model 1): a ``LONG_PROMPT`` (1,024)
-   token prefill at batch 2 into a ``LONG_CACHE`` (1,152) slot cache,
-   then ``LONG_STEPS`` (16) greedy steps through ``flash_decode_sharded``
-   and the same steps with no mesh (the no-mesh run's tokens fed to
-   both): logits to ``MESH_BF16_TOL``, greedy tokens equal but after a
-   near tie, ms a step for each; (c) every architecture at ``reduced()``
+   token prefill at batch ``LONG_BATCH`` (4) into a ``LONG_CACHE``
+   (1,152) slot cache, then ``LONG_STEPS`` (16) greedy steps through
+   ``flash_decode_sharded`` and the same steps with no mesh (the no-mesh
+   run's tokens fed to both): logits to ``MESH_BF16_TOL``, greedy tokens
+   equal but after a near tie, ms a step for each; (c) every architecture at ``reduced()``
    size in float32 on 2 x 2 lanes, on the card and on the CPU with the
    same weights: forward logits and one ``loss_fn`` backward's gradients
    to ``MESH_CARD_CPU_TOL``, the MoE archs in each EP mode and kimi with
    capacity factor 1.0, gemma-2b's prefill and decode with its KV head
    repeated to 2; (d) ``python -m repro_torch.launch.train --mesh 2x2``
    with the four lanes on the card, ``MESH_CLI_STEPS`` steps, its loss
-   falling.  The phase launches no SpMV kernel.
+   falling; (e) phase 12's cell on (data 2 x model 2) lanes: gemma-2b at
+   its published width, B = 4 x S = 512, AdamW with float32 masters and
+   remat, seed 0, ``MESH_TRAIN_STEPS`` (3) steps on phase 12's batches:
+   each step's loss to phase 12's no-mesh loss within ``MESH_TRAIN_RTOL``
+   (2e-3), each lane's parameter and optimizer-state bytes (its own
+   storages) kept for phase 14.  The phase launches no SpMV kernel.
 14. dry run — ``launch.dryrun.trace_cell`` of phase 12's cell (gemma-2b
    at full width, B = 4 x S = 512, AdamW with float32 masters, remat
    "nothing") on one ``meta`` lane, beside phase 12's real step on the
@@ -174,8 +183,12 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    its argument bytes equal the bytes of the real state and batch, and
    argument + temp bytes within ``DRYRUN_PEAK_RTOL`` (5%) of phase 12's
    measured peak (``torch.cuda.max_memory_allocated`` above what was
-   held before the model).  It runs no production-mesh cell and no
-   subprocess (a meta trace needs no card), must end within
+   held before the model); then the same cell on (data 2 x model 2)
+   ``meta`` lanes, beside phase 13 (e): a lane's parameter and optimizer
+   state bytes equal (e)'s lanes' own storages exactly, its temp is a
+   number, and its counted all-gather and reduce-scatter bytes equal
+   ``derived_collectives``' FSDP rule.  It runs no production-mesh cell
+   and no subprocess (a meta trace needs no card), must end within
    ``DRYRUN_SECONDS`` (60 s), and launches no SpMV kernel.
 15. examples — the four ``repro_torch.examples`` twins' ``main`` in this
    process, once each on the card: quickstart (RMAT scale 14),
@@ -279,10 +292,14 @@ MESH_TIMED = 3                 # (a): forwards timed a mode, after one warm
 # CPU, widths 64 to 2,048); two of them within twice that, plus a bf16
 # ulp of the logit
 MESH_BF16_TOL = dict(atol=0.125, rtol=2 ** -7)
-LONG_BATCH, LONG_PROMPT = 2, 1024  # (b): prefill, then LONG_STEPS greedy
-LONG_CACHE, LONG_STEPS = 1152, 16  # steps; 1152 = 4 lanes x 288 slots
+# (b): prefill, then LONG_STEPS greedy steps; the batch splits over the
+# 4 data lanes, the cache's 1152 slots too (288 a lane)
+LONG_BATCH, LONG_PROMPT = 4, 1024
+LONG_CACHE, LONG_STEPS = 1152, 16
 MESH_CARD_CPU_TOL = 1e-4       # (c): atol and rtol, float32 (phase 12's)
 MESH_CLI_STEPS = 8             # (d)
+MESH_TRAIN_STEPS = 3           # (e): phase 12's first steps on 2 x 2 lanes
+MESH_TRAIN_RTOL = 2e-3         # (e): the bf16 trajectory bound of the CLI
 # phase 14: the dry run's argument + temp bytes on one meta lane against
 # phase 12's measured peak (the caching allocator rounds each block up, and
 # the peak holds a second batch); and its time budget
@@ -3078,13 +3095,40 @@ def lane_mesh(dev, shape: tuple, axes=("data", "model")):
 
 
 def sharing(torch, model, cfg, ctx, **kw):
-    """A ``Model`` on ``ctx`` whose parameters are ``model``'s own
-    tensors (no copy)."""
+    """A ``Model`` on ``ctx`` that holds ``model``'s own pieces (no copy):
+    ``ctx`` must lay every weight out as ``model``'s does."""
     from repro_torch.models.model import Model
+    from repro_torch.models.nn import named_weights
 
     other = Model(cfg, ctx=ctx, device="meta", **kw)
-    other.load_state_dict(model.state_dict(), assign=True)
+    mine = dict(named_weights(model))
+    for name, w in list(named_weights(other)):
+        src = mine[name]
+        check(tuple(src.spec) == tuple(w.spec),
+              f"mesh: {name} laid out {src.spec} here, {w.spec} there")
+        parent, _, attr = name.rpartition(".")
+        setattr(other.get_submodule(parent), attr, src)
     return other
+
+
+def no_views(torch, model, what: str) -> int:
+    """Check that every piece of ``model``'s expert weights has storage of
+    its own, of its size (no lane's piece a view of another lane's
+    tensor); -> the pieces checked."""
+    from repro_torch.models.nn import named_weights
+
+    n = 0
+    for name, w in named_weights(model):
+        if ".moe.w_" not in name:
+            continue
+        ptrs = [p.untyped_storage().data_ptr() for p in w.pieces]
+        check(len(set(ptrs)) == len(ptrs) and all(
+            p.untyped_storage().nbytes() == p.numel() * p.element_size()
+            for p in w.pieces),
+            f"mesh: {what}: {name}'s pieces share storage")
+        n += len(ptrs)
+    check(n > 0, f"mesh: {what}: no expert piece found")
+    return n
 
 
 def _close(torch, got, want, tol: dict, what: str) -> float:
@@ -3120,10 +3164,32 @@ def mesh_config():
     return dataclasses.replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS)
 
 
+def _time_forward(torch, model, tokens, what: str) -> tuple:
+    """(logits, aux, median ms, profile) of ``model``'s forward, after
+    one warm forward (cuBLAS plans)."""
+    import numpy as np
+
+    with torch.inference_mode():
+        model({"tokens": tokens})
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            logits, aux = model({"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
+              f"mesh: kimi {what}: logits or aux not finite")
+        prof = profile_forward(torch, lambda: model({"tokens": tokens}))
+    return logits, float(aux), float(np.median(times)) * 1e3, prof
+
+
 def mesh_full_width(torch, card: str, dev) -> tuple:
     """(a) kimi-k2 at full width, two layers: the forward with no mesh and
-    in the three EP modes on (data 2 x model 2) lanes of one card.
-    Returns (numbers, the no-mesh model)."""
+    in the three EP modes on (data 2 x model 2) lanes of one card, one
+    model on the card at a time (the pieces of 'a2a' and 'replicated'
+    shared).  The no-mesh model also runs (b)'s baseline decode.
+    Returns (numbers, (b)'s baseline)."""
     import numpy as np
 
     from repro_torch.dist.context import make_rules
@@ -3133,93 +3199,106 @@ def mesh_full_width(torch, card: str, dev) -> tuple:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
     torch.cuda.reset_peak_memory_stats()
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ))).long().to(dev)
+    out, ms, prof, build, diffs = {}, {}, {}, {}, {}
     t0 = time.perf_counter()
     base = Model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params = base.param_count()
+    logits, aux, ms["no mesh"], prof["no mesh"] = _time_forward(
+        torch, base, tokens, "no mesh")
+    out["no mesh"] = (None, aux)
+    del logits
+    baseline = long_decode_run(torch, base, None, dev)
+    del base
+    torch.cuda.empty_cache()
     mesh = lane_mesh(dev, (2, 2))
-    models = {"no mesh": base}
-    for mode, kw in (("a2a", {}), ("replicated", {"ep_mode": "replicated"}),
-                     ("serve 2-D", {"serve_fsdp": False})):
-        models[mode] = sharing(torch, base, cfg, make_rules(mesh, cfg, **kw))
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ))).long().to(dev)
-    out, ms, prof = {}, {}, {}
-    with torch.inference_mode():
-        for mode, model in models.items():
-            model({"tokens": tokens})  # warm: cuBLAS plans
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(MESH_TIMED):
-                t0 = time.perf_counter()
-                logits, aux = model({"tokens": tokens})
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            check(bool(torch.isfinite(logits).all())
-                  and bool(torch.isfinite(aux)),
-                  f"mesh: kimi {mode}: logits or aux not finite")
-            out[mode] = (logits, float(aux))
-            ms[mode] = float(np.median(times)) * 1e3
-            prof[mode] = profile_forward(
-                torch, lambda m=model: m({"tokens": tokens}))
+    pieces = 0
+    for layout, modes in (({}, (("a2a", {}),
+                                ("replicated", {"ep_mode": "replicated"}))),
+                          ({"serve_fsdp": False}, (("serve 2-D", {}),))):
+        t0 = time.perf_counter()
+        first = Model(cfg, ctx=make_rules(mesh, cfg, **layout), seed=0)
+        torch.cuda.synchronize()
+        build[modes[0][0]] = time.perf_counter() - t0
+        pieces += no_views(torch, first, modes[0][0])
+        for mode, kw in modes:
+            model = first if not kw else sharing(
+                torch, first, cfg, make_rules(mesh, cfg, **layout, **kw))
+            logits, aux, ms[mode], prof[mode] = _time_forward(
+                torch, model, tokens, mode)
+            out[mode] = (None, aux)
+            if mode == "a2a":  # the others are held to it, then dropped
+                want = logits
+            else:
+                diffs[mode] = _close(torch, logits, want, MESH_BF16_TOL,
+                                     f"kimi {mode} against a2a")
+            del model, logits
+        del first
+        torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
-    want = out["a2a"][0]
-    diffs = {m: _close(torch, out[m][0], want, MESH_BF16_TOL,
-                       f"kimi {m} against a2a")
-             for m in ("replicated", "serve 2-D")}
     log(f"mesh: {MESH_ARCH} bf16 at full width, {MESH_LAYERS} layers "
         f"({params:,} params, {params * 2 / 1e9:.1f} GB, built in "
-        f"{init_s:.2f}s), B={MESH_BATCH} S={MESH_SEQ}, mesh {mesh}: "
-        f"peak memory {(peak - held) / 1e9:.3f} GB above the "
-        f"{held / 1e9:.3f} GB held before; {card}")
-    for mode in models:
+        f"{init_s:.2f}s with no mesh; resident lane by lane on {mesh} in "
+        f"{build['a2a']:.2f}s (a2a, replicated) and "
+        f"{build['serve 2-D']:.2f}s (serve 2-D); {pieces} expert pieces, "
+        f"each its own storage), B={MESH_BATCH} S={MESH_SEQ}: peak memory "
+        f"{(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+        f"before; {card}")
+    for mode in ms:
         log(f"mesh:   {mode:<10s} {ms[mode]:9.3f} ms a forward (median of "
             f"{MESH_TIMED}); aux {out[mode][1]:.6f}; profiled: "
             f"{prof[mode][0]} device ops, device busy {prof[mode][1]:.3f} "
             f"ms" + (f"; max |logit - a2a| {diffs[mode]:.3g}"
                      if mode in diffs else ""))
-    result = {"params": params, "init_s": init_s, "ms": ms,
-              "peak_gb": (peak - held) / 1e9, "profile": prof,
-              "max_diff": diffs}
-    del out, want, models
-    return result, base
+    result = {"params": params, "init_s": init_s, "build_s": build,
+              "ms": ms, "peak_gb": (peak - held) / 1e9, "profile": prof,
+              "max_diff": diffs, "expert_pieces": pieces}
+    del want
+    return result, baseline
 
 
-def mesh_long_decode(torch, card: str, base, dev) -> dict:
-    """(b) ``long_context`` on (data 4 x model 1): the cache's sequence
-    split over four lanes of one card, against no mesh."""
+def long_decode_run(torch, model, fed, dev) -> tuple:
+    """A ``LONG_PROMPT`` prefill and ``LONG_STEPS`` greedy steps (``fed``:
+    the tokens to feed instead of the greedy ones); -> (logits, greedy
+    tokens, ms a step)."""
     import numpy as np
 
-    from repro_torch.dist.context import make_rules
-
-    cfg = base.cfg
-    ctx = make_rules(lane_mesh(dev, (4, 1)), cfg, long_context=True)
-    sharded = sharing(torch, base, cfg, ctx, long_context=True)
+    cfg = model.cfg
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LONG_BATCH, LONG_PROMPT))).long().to(dev)
-    runs = {}
-    fed = None  # the no-mesh run's greedy tokens, fed to both
     with torch.inference_mode():
-        for name, model in (("no mesh", base), ("sharded", sharded)):
-            logits, caches, _ = model.prefill({"tokens": prompt},
-                                              cache_len=LONG_CACHE)
-            seq, toks = [logits[:, 0]], [logits[:, 0].argmax(-1)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(LONG_STEPS):
-                tok = (toks[-1] if fed is None else fed[:, i])[:, None]
-                logits, caches = model.decode_step(caches, tok,
-                                                   LONG_PROMPT + i)
-                seq.append(logits[:, 0])
-                toks.append(logits[:, 0].argmax(-1))
-            torch.cuda.synchronize()
-            runs[name] = (torch.stack(seq, 1), torch.stack(toks, 1),
-                          (time.perf_counter() - t0) / LONG_STEPS * 1e3)
-            if fed is None:
-                fed = runs[name][1]
-    (want, want_tok, base_ms), (got, got_tok, ms) = (runs["no mesh"],
-                                                     runs["sharded"])
+        logits, caches, _ = model.prefill({"tokens": prompt},
+                                          cache_len=LONG_CACHE)
+        seq, toks = [logits[:, 0]], [logits[:, 0].argmax(-1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LONG_STEPS):
+            tok = (toks[-1] if fed is None else fed[:, i])[:, None]
+            logits, caches = model.decode_step(caches, tok, LONG_PROMPT + i)
+            seq.append(logits[:, 0])
+            toks.append(logits[:, 0].argmax(-1))
+        torch.cuda.synchronize()
+    return (torch.stack(seq, 1), torch.stack(toks, 1),
+            (time.perf_counter() - t0) / LONG_STEPS * 1e3)
+
+
+def mesh_long_decode(torch, card: str, baseline, dev) -> dict:
+    """(b) ``long_context`` on (data 4 x model 1): the cache's sequence
+    split over four lanes of one card, against no mesh (``baseline``,
+    run by (a) on the same weights)."""
+    from repro_torch.dist.context import make_rules
+    from repro_torch.models.model import Model
+
+    cfg = mesh_config()
+    ctx = make_rules(lane_mesh(dev, (4, 1)), cfg, long_context=True)
+    sharded = Model(cfg, ctx=ctx, seed=0, long_context=True)
+    want, want_tok, base_ms = baseline
+    got, got_tok, ms = long_decode_run(torch, sharded, want_tok[:, :-1], dev)
+    del sharded
+    torch.cuda.empty_cache()
     err = _close(torch, got, want, MESH_BF16_TOL,
                  "long-context decode against no mesh")
     top2 = want.topk(2, dim=-1).values
@@ -3343,17 +3422,96 @@ def mesh_cli(dev) -> list:
     return losses
 
 
-def phase_mesh(torch, card: str, dev) -> dict:
+def lane_storage_bytes(model, state) -> tuple[list, list]:
+    """Each lane's bytes of its own parameter pieces and of its optimizer
+    state's parts (the sum of their storages)."""
+    from repro_torch.models.nn import named_weights
+
+    weights = [w for _, w in named_weights(model)]
+    n = len(weights[0].pieces)
+    params = [sum(w.pieces[i].untyped_storage().nbytes() for w in weights)
+              for i in range(n)]
+    ema = [sum(t.parts.flat[i].untyped_storage().nbytes()
+               for st in state.opt["ema"].values() for t in st.values())
+           for i in range(n)]
+    return params, ema
+
+
+def mesh_train(torch, card: str, dev, train: dict) -> dict:
+    """(e) phase 12's cell on (data 2 x model 2) lanes of the card: the
+    resident model's first ``MESH_TRAIN_STEPS`` steps against phase 12's
+    losses, and each lane's bytes for phase 14."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import make_rules
+    from repro_torch.models.model import Model
+    from repro_torch.train import OptConfig, make_init_state, make_train_step
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = lane_mesh(dev, (2, 2))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, ctx=make_rules(mesh, cfg), seed=0)
+    opt = OptConfig(**TRAIN_OPT)
+    state = make_init_state(model, opt)()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    step = make_train_step(model, opt)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [_on(torch, data.get_batch(i), dev) for i in range(TRAIN_CYCLE)]
+    losses, seconds = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i % TRAIN_CYCLE])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    want = train["losses"][:MESH_TRAIN_STEPS]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    check(bool(np.isfinite(losses).all()) and max(gaps) <= MESH_TRAIN_RTOL,
+          f"mesh: gemma-2b on 2 x 2 losses {losses} against phase 12's "
+          f"{want} (max rel gap {max(gaps):.3g} > {MESH_TRAIN_RTOL})")
+    params, ema = lane_storage_bytes(model, state)
+    check(len(set(params)) == 1 and len(set(ema)) == 1,
+          f"mesh: lanes hold different bytes: {params} {ema}")
+    whole = model.param_count() * 2
+    log(f"mesh: {TRAIN_ARCH} bf16 at full width on {mesh}, AdamW + fp32 "
+        f"masters, remat, B={TRAIN_BATCH} S={TRAIN_SEQ}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + " against phase 12's "
+        + ", ".join(f"{x:.4f}" for x in want) + f" (max rel gap "
+        f"{max(gaps):.2e}, tolerance {MESH_TRAIN_RTOL}); steps "
+        + ", ".join(f"{s * 1e3:.1f}" for s in seconds) + f" ms (phase 12, "
+        f"no mesh: {train['step_s'] * 1e3:.1f} ms); built in {build_s:.2f}s;"
+        f" a lane's own parameter bytes {params[0]:,} "
+        f"({params[0] / whole:.4f} of the whole {whole:,}), optimizer "
+        f"state {ema[0]:,}; peak memory {(peak - held) / 1e9:.3f} GB above "
+        f"the {held / 1e9:.3f} GB held before; {card}")
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [s * 1e3 for s in seconds],
+            "param_lane_bytes": params[0], "ema_lane_bytes": ema[0],
+            "whole_param_bytes": whole, "max_gap": max(gaps),
+            "peak_gb": (peak - held) / 1e9}
+
+
+def phase_mesh(torch, card: str, dev, train: dict) -> dict:
     """Phase 13: the mesh.  It must launch no SpMV kernel."""
     from repro_torch.kernels.spmv import cuda
 
     before = dict(cuda.launches)
-    out, base = mesh_full_width(torch, card, dev)
-    out["long"] = mesh_long_decode(torch, card, base, dev)
-    del base
+    out, baseline = mesh_full_width(torch, card, dev)
+    out["long"] = mesh_long_decode(torch, card, baseline, dev)
+    del baseline
     torch.cuda.empty_cache()
     out["card_cpu_max_diff"] = mesh_card_vs_cpu(torch, dev)
     out["cli_losses"] = mesh_cli(dev)
+    out["train"] = mesh_train(torch, card, dev, train)
     check(dict(cuda.launches) == before,
           f"mesh: SpMV launches moved: {before} -> {dict(cuda.launches)}")
     log("mesh: no SpMV kernel launched")
@@ -3363,11 +3521,11 @@ def phase_mesh(torch, card: str, dev) -> dict:
 # --------------------------------------------------------------------------
 # phase 14: the dry run
 # --------------------------------------------------------------------------
-def phase_dry_run(torch, card: str, train: dict) -> dict:
+def phase_dry_run(torch, card: str, train: dict, mesh_out: dict) -> dict:
     """Phase 14: phase 12's cell traced on one meta lane against phase
     12's real step: FLOPs and argument bytes equal, argument + temp
-    within ``DRYRUN_PEAK_RTOL`` of the measured peak.  It must launch no
-    SpMV kernel."""
+    within ``DRYRUN_PEAK_RTOL`` of the measured peak; then on (2 x 2)
+    meta lanes against phase 13 (e).  It must launch no SpMV kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.spmv import cuda
     from repro_torch.launch.dryrun import analyze, trace_cell
@@ -3405,11 +3563,71 @@ def phase_dry_run(torch, card: str, train: dict) -> dict:
         f"{mem['output_size_in_bytes'] / 1e9:.3f} GB) against phase 12's "
         f"measured peak {train['peak_gb']:.3f} GB ({gap:+.2%}, tolerance "
         f"{DRYRUN_PEAK_RTOL:.0%}); {card}")
+    lanes = dry_run_mesh(torch, card, mesh_out["train"])
     check(dict(cuda.launches) == before,
           f"dryrun: SpMV launches moved: {before} -> {dict(cuda.launches)}")
     log("dryrun: no SpMV kernel launched")
     return {"flops": rec["flops"], "arguments": args, "temp": temp,
-            "gap": gap, "trace_seconds": seconds}
+            "gap": gap, "trace_seconds": seconds, "mesh": lanes}
+
+
+def dry_run_mesh(torch, card: str, real: dict) -> dict:
+    """Phase 12's cell on (data 2 x model 2) meta lanes against phase 13
+    (e)'s lanes: a lane's parameter and optimizer-state argument bytes
+    equal (e)'s own storages, temp is a number, and the counted FSDP
+    collectives equal ``derived_collectives``."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import make_rules
+    from repro_torch.launch.dryrun import (_meta_mesh, _state_entries,
+                                           analyze, derived_collectives,
+                                           lane_bytes, trace_cell)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.train import OptConfig, make_init_state
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_mesh((2, 2), ("data", "model"), devices="cpu")
+    t0 = time.perf_counter()
+    traced = trace_cell(cfg, ShapeSpec("phase13e", "train", TRAIN_SEQ,
+                                       TRAIN_BATCH), mesh, unroll=False,
+                        opt_name="adamw")
+    rec = analyze(traced)
+    seconds = time.perf_counter() - t0
+    ctx = make_rules(_meta_mesh(mesh), cfg)
+    leaves = reference_leaves(traced.model)
+    params = lane_bytes([(leaf.shape, leaf.dtype, ctx.param_sharding(leaf))
+                         for leaf in leaves])
+    state = make_init_state(traced.model, OptConfig(**TRAIN_OPT))()
+    entries = _state_entries(state, ctx)
+    ema = lane_bytes(entries[len(leaves) + 1:-1])  # m, v, master
+    check(params == real["param_lane_bytes"],
+          f"dryrun: 2 x 2 lane parameter bytes {params} != phase 13 (e)'s "
+          f"lane's own {real['param_lane_bytes']}")
+    check(ema == real["ema_lane_bytes"],
+          f"dryrun: 2 x 2 lane optimizer-state bytes {ema} != phase 13 "
+          f"(e)'s lane's own {real['ema_lane_bytes']}")
+    temp = rec["memory"]["temp_size_in_bytes"]
+    check(isinstance(temp, int) and temp > 0, f"dryrun: 2 x 2 temp {temp}")
+    derived = derived_collectives(leaves, ctx, True)
+    colls = rec["collectives"]
+    for kind in ("all-gather", "reduce-scatter"):
+        named = sum(v for k, v in traced.labelled.items()
+                    if k.startswith(kind + ":"))
+        check(colls.get(kind, 0) - named == derived[kind],
+              f"dryrun: 2 x 2 counted {kind} {colls.get(kind, 0)} (named "
+              f"{named}) != the FSDP rule's {derived[kind]}")
+    log(f"dryrun: {TRAIN_ARCH} on (2 x 2) meta lanes, one lane's program "
+        f"traced in {seconds:.1f}s: a lane's parameters {params:,} B and "
+        f"optimizer state {ema:,} B equal phase 13 (e)'s lanes' own "
+        f"storages; arguments {rec['memory']['argument_size_in_bytes']:,} "
+        f"B, temp {temp:,} B a lane; collectives a lane "
+        + ", ".join(f"{k} {v:,} B" for k, v in sorted(colls.items()))
+        + " (all-gather and reduce-scatter equal the FSDP rule); FLOPs a "
+        f"lane {rec['flops']:.6e}; {card}")
+    return {"param_bytes": params, "ema_bytes": ema, "temp": temp,
+            "collectives": colls, "flops": rec["flops"],
+            "trace_seconds": seconds}
 
 
 # --------------------------------------------------------------------------
@@ -3571,6 +3789,7 @@ def main() -> int:
             layouts["mesh"], n, tiling, solo, batch)
         log(f"multi: all comparisons passed in "
             f"{time.perf_counter() - t0:.1f}s")
+        del tiling  # phases 3 and 7's tiles: no later phase reads them
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         storage_launches = phase_storage(torch, str(store.path), solo,
@@ -3598,11 +3817,11 @@ def main() -> int:
         log(f"train: all checks passed in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phase_mesh(torch, card, torch.device("cuda", 0))
+        mesh_out = phase_mesh(torch, card, torch.device("cuda", 0), train)
         log(f"mesh: all checks passed in {time.perf_counter() - t0:.1f}s")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phase_dry_run(torch, card, train)
+        phase_dry_run(torch, card, train, mesh_out)
         seconds = time.perf_counter() - t0
         check(seconds <= DRYRUN_SECONDS,
               f"dryrun: phase 14 took {seconds:.1f}s, over its "

@@ -272,19 +272,17 @@ def csr_to_ell(shard: CSRShard, max_width: int = 512, lane: int = LANE) -> ELLSh
     row_map = np.zeros(R, dtype=np.int32)
     row_map[:r_used] = np.repeat(np.arange(shard.num_rows, dtype=np.int32), reps)
     ell_start = np.concatenate([[0], np.cumsum(reps)])  # first ELL row per CSR row
-    occ = np.arange(r_used, dtype=np.int64) - ell_start[row_map[:r_used]]
-    base = shard.row[row_map[:r_used]] + occ * w  # first edge idx per ELL row
-    idx = base[:, None] + np.arange(w, dtype=np.int64)[None, :]
-    valid = idx < shard.row[row_map[:r_used] + 1][:, None]
-    idx = np.where(valid, idx, 0)
     cols = np.full((R, w), -1, dtype=np.int32)
     vals = np.zeros((R, w), dtype=np.float32)
     if shard.nnz:  # an interval can own zero edges: keep all-sentinel rows
-        cols[:r_used] = np.where(valid, shard.col[idx], -1).astype(np.int32)
-        if shard.val is not None:
-            vals[:r_used] = np.where(valid, shard.val[idx], 0.0).astype(np.float32)
-        else:
-            vals[:r_used] = valid.astype(np.float32)
+        # scatter each edge to its slot (edge e, k-th of its CSR row:
+        # ELL row ell_start[row] + k // w, slot k % w): work in nnz, not
+        # in the padded R x w slots
+        row_of = np.repeat(np.arange(shard.num_rows, dtype=np.int64), deg)
+        k = np.arange(shard.nnz, dtype=np.int64) - shard.row[row_of]
+        slot = (ell_start[row_of] + k // w) * w + k % w
+        cols.reshape(-1)[slot] = shard.col
+        vals.reshape(-1)[slot] = (1.0 if shard.val is None else shard.val)
     return ELLShard(
         shard_id=shard.shard_id,
         start_vertex=shard.start_vertex,

@@ -9,10 +9,13 @@ or the CPU; nothing maps D lanes onto fewer GPUs unless the list says so.
 
 The LLM stack: a ``Mesh`` is a named grid of such lanes in one process,
 like jax's single-controller mesh, and ``ShardCtx``/``make_rules`` are the
-reference's layout policy, line for line.  The model's dense layers run
-whole on the mesh's first lane; the code the reference writes with
-``jax.shard_map`` runs lane by lane over ``dist.spmd``'s explicit
-collectives.
+reference's layout policy, line for line.  A model built on an enabled
+context holds each weight as one piece a lane, cut by ``param_sharding``
+(``models.nn.ShardedParameter``), and runs as the reference's SPMD
+program lane by lane over ``dist.spmd``'s explicit collectives: what
+GSPMD derives from the shardings (the FSDP all-gathers, the tensor
+parallel ``psum``s) and what the reference writes with
+``jax.shard_map`` alike.
 """
 from __future__ import annotations
 
@@ -118,9 +121,17 @@ class Mesh:
     def size(self) -> int:
         return self.devices.size
 
+    def on_meta(self) -> "Mesh":
+        """The same grid of lanes, all ``meta``."""
+        grid = np.empty(self.devices.shape, dtype=object)
+        for idx in np.ndindex(grid.shape):
+            grid[idx] = torch.device("meta")
+        return Mesh(grid, self.axis_names)
+
     @property
     def first_device(self) -> torch.device:
-        """The lane that holds the model and runs its dense layers."""
+        """The first lane's device: where a weight is made whole before
+        it is cut, and where whole values are assembled."""
         return self.devices.flat[0]
 
     def __repr__(self) -> str:
@@ -185,6 +196,11 @@ def _axes_tuple(rule: Rule) -> tuple[str, ...]:
     if isinstance(rule, str):
         return (rule,)
     return tuple(rule)
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis a spec splits over, in its order."""
+    return tuple(a for entry in spec for a in _axes_tuple(entry))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,8 +273,10 @@ class ShardCtx:
 
     def constrain(self, x, logical_axes):
         """The reference places ``x`` by its logical axes here and never
-        changes its value; the port's dense layers run whole on the
-        mesh's first lane, so this returns ``x`` as it is."""
+        changes its value.  The port's layers on a mesh hold each lane's
+        part of an activation already (``models.model``'s lanes program),
+        so a whole tensor that reaches this (a layer called whole, as the
+        layer tests call it) is returned as it is."""
         del logical_axes
         return x
 

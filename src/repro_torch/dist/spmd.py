@@ -5,9 +5,20 @@ A value split over a mesh is a numpy object array of the mesh's shape
 holding one tensor per lane (``shard``); ``lanewise`` runs a function on
 each lane's tensors, and the collectives move tensors between lanes
 explicitly (``.to(lane)``, ``torch.cat``, sums), so autograd trains
-through them with no custom backward.  Lanes on one device move nothing:
-``shard`` hands out views and ``.to`` to the same device is the tensor
-itself.
+through them with no custom backward: the transpose of ``all_gather`` is
+``psum_scatter`` and the other way round, as jax's.  Lanes on one device
+move nothing: ``shard`` hands out views, ``.to`` to the same device is the
+tensor itself, and the lanes of a group that share a device share one
+gathered tensor.  ``Lanes`` is a global array held as one tensor a lane
+(the KV caches and the optimizer state of a mesh model).
+
+``representative_lane()``: inside it, ``lanewise`` runs ``fn`` on the
+first lane only and hands its result to every lane, and each collective
+computes its first group's result for all.  An SPMD program's lanes run
+the same ops on the same shapes, so this is one lane's program, as the
+reference's SPMD partitioner compiles one program for every device: the
+dry run traces ``meta`` meshes of 256 lanes this way, and its counts are
+one lane's.
 
 Every collective computes its result once per group of lanes, in the
 order of the lanes' index along the reduced axes, and hands that result to
@@ -17,9 +28,15 @@ gives.
 ``count_collectives()`` records, while it is active, each collective's
 per-lane result bytes by the kind names of XLA's HLO (``psum`` and
 ``pmax`` are an ``all-reduce``, ``pmean`` its ``psum`` once,
-``all_to_all`` an ``all-to-all``), and the bytes of each one's
+``all_to_all`` an ``all-to-all``, ``all_gather`` an ``all-gather`` and
+``psum_scatter`` a ``reduce-scatter``), and the bytes of each one's
 transpose when autograd runs it backward (the gradient of a lane's
-result, under the same kind).  Inactive, it costs one test a call.
+result under the same kind; a gather's transpose is a ``reduce-scatter``
+of the lane's shard, a reduce-scatter's an ``all-gather``).  A collective
+called with a ``label`` adds its bytes to its kind and also under
+``counts.labelled["<kind>: <label>"]``, so a caller can name a part of a
+kind.
+Inactive, it costs one test a call.
 """
 from __future__ import annotations
 
@@ -34,18 +51,36 @@ import torch
 from repro_torch.dist.context import Mesh, PartitionSpec
 
 
+class Counts(dict):
+    """{kind: per-lane result bytes}, and ``labelled``: {"kind: label":
+    bytes} of the labelled collectives (also in their kind's total)."""
+
+    def __init__(self):
+        super().__init__()
+        self.labelled: dict[str, int] = {}
+
+    def add(self, kind: str, n: int, label: str | None) -> None:
+        self[kind] = self.get(kind, 0) + int(n)
+        if label is not None:
+            key = f"{kind}: {label}"
+            self.labelled[key] = self.labelled.get(key, 0) + int(n)
+
+
 # the active counter of this thread or task, if any
-_counts: contextvars.ContextVar[dict[str, int] | None] = \
+_counts: contextvars.ContextVar[Counts | None] = \
     contextvars.ContextVar("collective_counts", default=None)
+# whether lanewise and the collectives run the first lane for all
+_one_lane: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("representative_lane", default=False)
 
 
 @contextlib.contextmanager
 def count_collectives():
-    """-> a dict {kind: per-lane result bytes} that the collectives run
-    inside the block (and their backward passes) add to.  A lane's bytes
-    are those of lane 0's result: every lane of a mesh joins each
-    collective with a result of the same shape."""
-    counts: dict[str, int] = {}
+    """-> a ``Counts`` dict {kind: per-lane result bytes} that the
+    collectives run inside the block (and their backward passes) add to.
+    A lane's bytes are those of lane 0's result: every lane of a mesh
+    joins each collective with a result of the same shape."""
+    counts = Counts()
     token = _counts.set(counts)
     try:
         yield counts
@@ -53,16 +88,45 @@ def count_collectives():
         _counts.reset(token)
 
 
-def _record(kind: str, out: np.ndarray) -> np.ndarray:
+@contextlib.contextmanager
+def representative_lane():
+    """Run one lane's program for every lane (module docstring)."""
+    token = _one_lane.set(True)
+    try:
+        yield
+    finally:
+        _one_lane.reset(token)
+
+
+def representative() -> bool:
+    """Whether ``representative_lane`` is active."""
+    return _one_lane.get()
+
+
+# set while ``unshard`` assembles a whole value under
+# ``representative_lane``: an op there is no lane's (the dry run skips it)
+assembling: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("assembling", default=False)
+
+
+def _record(kind: str, out: np.ndarray, *, back: str | None = None,
+            back_scale: tuple[int, int] = (1, 1),
+            label: str | None = None) -> np.ndarray:
+    """Count lane 0's result bytes of ``out`` under ``kind``, and when
+    autograd runs it backward, its gradient's bytes times ``back_scale``
+    (num, den) under ``back`` (default: ``kind``)."""
     counts = _counts.get()
     if counts is None:
         return out
     lane = out.flat[0]
-    counts[kind] = counts.get(kind, 0) + lane.numel() * lane.element_size()
+    counts.add(kind, lane.numel() * lane.element_size(), label)
     if lane.requires_grad:
+        num, den = back_scale
+
         def backward(grad):
-            counts[kind] = counts.get(kind, 0) + \
-                grad.numel() * grad.element_size()
+            counts.add(back or kind,
+                       grad.numel() * grad.element_size() * num // den,
+                       label)
         lane.register_hook(backward)
     return out
 
@@ -128,6 +192,12 @@ def unshard(parts: np.ndarray, spec: PartitionSpec, mesh: Mesh,
     """The inverse of ``shard``: the whole tensor, on ``device`` (default:
     the mesh's first lane), from the lanes at position 0 of every axis
     ``spec`` does not split over."""
+    if _one_lane.get() and not assembling.get():
+        token = assembling.set(True)
+        try:
+            return unshard(parts, spec, mesh, device)
+        finally:
+            assembling.reset(token)
     dev = mesh.first_device if device is None else device
     used = {a for entry in spec for a in _axes(entry)}
     blocks = {}
@@ -146,6 +216,64 @@ def unshard(parts: np.ndarray, spec: PartitionSpec, mesh: Mesh,
     return assemble((), 0)
 
 
+class Lanes:
+    """A global array held as one tensor a lane: ``parts`` (an object
+    array of the mesh's shape) split by ``spec``.  ``shape`` and
+    ``dtype`` are the global array's, as jax's ``jax.Array``; ``full``
+    assembles it (``unshard``)."""
+
+    __slots__ = ("parts", "spec", "mesh", "shape", "dtype")
+
+    def __init__(self, parts: np.ndarray, spec: PartitionSpec, mesh: Mesh,
+                 shape, dtype: torch.dtype):
+        self.parts, self.spec, self.mesh = parts, PartitionSpec(*spec), mesh
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    @classmethod
+    def split(cls, x: torch.Tensor, spec: PartitionSpec,
+              mesh: Mesh) -> "Lanes":
+        """``x`` split by ``spec``, each lane's part a copy of its own."""
+        return cls(own(shard(x, spec, mesh)), spec, mesh, x.shape, x.dtype)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts.flat[0].device
+
+    def full(self, device: torch.device | None = None) -> torch.Tensor:
+        return unshard(self.parts, self.spec, self.mesh, device)
+
+    def __repr__(self) -> str:
+        return (f"Lanes({tuple(self.shape)}, {self.dtype}, {self.spec}, "
+                f"{self.mesh})")
+
+
+def lane_indices(shape):
+    """The lanes of a lanes array of ``shape`` a loop visits: every one,
+    or the first under ``representative_lane``."""
+    for idx in np.ndindex(shape):
+        yield idx
+        if _one_lane.get():
+            return
+
+
+def own(parts: np.ndarray, dtype: torch.dtype | None = None) -> np.ndarray:
+    """Each lane's tensor copied into storage of its own, of exactly its
+    size (no view of a tensor another lane holds), cast to ``dtype`` on
+    the way when given."""
+    out = np.empty(parts.shape, dtype=object)
+    for idx in np.ndindex(parts.shape):
+        t = parts[idx]
+        out[idx] = torch.empty(t.shape, dtype=dtype or t.dtype,
+                               device=t.device).copy_(t)
+    return out
+
+
 def lanewise(fn: Callable, *args):
     """``fn`` on each lane: every argument that is a lanes array gives
     its lane's entry, any other is passed as it is.  -> a lanes array, or
@@ -155,10 +283,13 @@ def lanewise(fn: Callable, *args):
     for idx in np.ndindex(shape):
         results[idx] = fn(*(a[idx] if isinstance(a, np.ndarray) else a
                             for a in args))
+        if _one_lane.get():
+            break
     first = next(iter(results.values()))
     n = len(first) if isinstance(first, tuple) else None
     outs = [np.empty(shape, dtype=object) for _ in range(n or 1)]
-    for idx, res in results.items():
+    for idx in np.ndindex(shape):
+        res = results.get(idx, first)
         for k, out in enumerate(outs):
             out[idx] = res[k] if n is not None else res
     return tuple(outs) if n is not None else outs[0]
@@ -174,17 +305,36 @@ def _groups(mesh: Mesh, axes: tuple[str, ...]) -> list[list[tuple]]:
     return [[idx for _, idx in sorted(g)] for g in groups.values()]
 
 
-def _reduce(parts: np.ndarray, axes, mesh: Mesh, op) -> np.ndarray:
+def _collect(parts: np.ndarray, axes, mesh: Mesh, make) -> np.ndarray:
+    """``make(group, k, dst)`` for lane ``dst``, the ``k``-th of its group
+    along ``axes``; the lanes of a group on one device share the result
+    of the first of them when ``make`` gives every lane the same value
+    (``k`` is None then).  Under ``representative_lane`` the first
+    group's first lane's result goes to every lane."""
     axes = _axes(axes)
     out = np.empty(parts.shape, dtype=object)
+    one = _one_lane.get()
     for group in _groups(mesh, axes):
-        home = mesh.devices[group[0]]
-        total = parts[group[0]]
-        for idx in group[1:]:
-            total = op(total, parts[idx].to(home))
-        for idx in group:
-            out[idx] = total.to(mesh.devices[idx])
+        made: dict = {}
+        for k, dst in enumerate(group):
+            out[dst] = make(group, k, dst, made)
+            if one:
+                for idx in np.ndindex(out.shape):
+                    out[idx] = out[dst]
+                return out
     return out
+
+
+def _reduce(parts: np.ndarray, axes, mesh: Mesh, op) -> np.ndarray:
+    def make(group, k, dst, made):
+        if "total" not in made:
+            home = mesh.devices[group[0]]
+            total = parts[group[0]]
+            for idx in group[1:]:
+                total = op(total, parts[idx].to(home))
+            made["total"] = total
+        return made["total"].to(mesh.devices[dst])
+    return _collect(parts, axes, mesh, make)
 
 
 def psum(parts: np.ndarray, axes, mesh: Mesh) -> np.ndarray:
@@ -209,17 +359,60 @@ def all_to_all(parts: np.ndarray, axis: str, split_axis: int,
     lanes: each lane cuts its tensor into n chunks along ``split_axis``,
     chunk k goes to lane k, and each lane concatenates what it receives
     along ``concat_axis`` in the senders' index order."""
-    out = np.empty(parts.shape, dtype=object)
     n = mesh.shape[axis]
-    for group in _groups(mesh, (axis,)):
-        size = parts[group[0]].shape[split_axis]
-        if size % n:
-            raise ValueError(f"all_to_all: dim {split_axis} of size {size} "
-                             f"does not split into {n} chunks")
-        size //= n
-        for k, dst in enumerate(group):
-            dev = mesh.devices[dst]
-            out[dst] = torch.cat(
-                [parts[src].narrow(split_axis, k * size, size).to(dev)
-                 for src in group], concat_axis)
-    return _record("all-to-all", out)
+    size = parts.flat[0].shape[split_axis]
+    if size % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of size {size} "
+                         f"does not split into {n} chunks")
+    size //= n
+
+    def make(group, k, dst, made):
+        dev = mesh.devices[dst]
+        return torch.cat([parts[src].narrow(split_axis, k * size, size)
+                          .to(dev) for src in group], concat_axis)
+    return _record("all-to-all", _collect(parts, (axis,), mesh, make))
+
+
+def all_gather(parts: np.ndarray, axes, dim: int, mesh: Mesh, *,
+               label: str | None = None) -> np.ndarray:
+    """``jax.lax.all_gather(..., tiled=True)`` over ``axes`` (a name or a
+    tuple, the first major): every lane of a group gets its lanes' parts
+    concatenated along ``dim`` in their index order.  Its backward, a
+    ``psum_scatter``, is counted as a ``reduce-scatter`` of the lane's
+    shard."""
+    n = math.prod(mesh.shape[a] for a in _axes(axes))
+    if n == 1:  # a group of one lane: nothing moves
+        return parts
+
+    def make(group, k, dst, made):
+        dev = mesh.devices[dst]
+        if dev not in made:
+            made[dev] = torch.cat([parts[src].to(dev) for src in group], dim)
+        return made[dev]
+    return _record("all-gather", _collect(parts, axes, mesh, make),
+                   back="reduce-scatter", back_scale=(1, n), label=label)
+
+
+def psum_scatter(parts: np.ndarray, axes, dim: int, mesh: Mesh, *,
+                 label: str | None = None) -> np.ndarray:
+    """``jax.lax.psum_scatter(..., tiled=True)`` over ``axes``: lane k of
+    a group gets the sum over the group, in its index order, of every
+    lane's k-th chunk along ``dim``.  Its backward, an ``all_gather``, is
+    counted as an ``all-gather``."""
+    n = math.prod(mesh.shape[a] for a in _axes(axes))
+    if n == 1:  # a group of one lane: nothing moves
+        return parts
+    size = parts.flat[0].shape[dim]
+    if size % n:
+        raise ValueError(f"psum_scatter: dim {dim} of size {size} does not "
+                         f"split into {n} chunks")
+    size //= n
+
+    def make(group, k, dst, made):
+        home = mesh.devices[dst]
+        total = parts[group[0]].narrow(dim, k * size, size).to(home)
+        for src in group[1:]:
+            total = total + parts[src].narrow(dim, k * size, size).to(home)
+        return total
+    return _record("reduce-scatter", _collect(parts, axes, mesh, make),
+                   back="all-gather", back_scale=(n, 1), label=label)

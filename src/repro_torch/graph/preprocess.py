@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +35,18 @@ def resolve_val_dtype(val_dtype: str | None) -> str:
         raise ValueError(f"val_dtype must be one of {EDGE_VAL_DTYPES}, "
                          f"got {val_dtype!r}")
     return val_dtype
+
+
+def _radix_key(keys: np.ndarray, bound: int) -> np.ndarray:
+    """``keys`` (all in ``[0, bound)``) as the narrowest unsigned dtype
+    that holds them: numpy's stable argsort of a 16-bit or narrower key
+    is a radix sort, several times faster than on int64, and a stable
+    order is the same whatever the algorithm."""
+    if bound <= 1 << 8:
+        return keys.astype(np.uint8)
+    if bound <= 1 << 16:
+        return keys.astype(np.uint16)
+    return keys
 
 
 def preprocess_graph(
@@ -71,7 +84,7 @@ def preprocess_graph(
     weighted = bool(meta.get("weighted"))
     for src, dst, val in iter_edge_list(edge_list_dir, store.io):
         owner = np.searchsorted(starts, dst, side="right") - 1
-        order = np.argsort(owner, kind="stable")
+        order = np.argsort(_radix_key(owner, P), kind="stable")
         owner_s, src_s, dst_s = owner[order], src[order], dst[order]
         val_s = val[order] if val is not None else None
         bounds = np.searchsorted(owner_s, np.arange(P + 1))
@@ -92,16 +105,18 @@ def preprocess_graph(
         f.close()
 
     # ---- step 3: sort, CSR -> ELL, persist, Bloom ---------------------------
+    # one shard a task, on a few threads (numpy's sorts, gathers and the
+    # writes release the GIL); each shard's bytes depend on it alone
     bloom_bits = BloomFilter.sized_for(int(threshold_edge_num), bloom_fp_rate)
-    shard_meta = []
-    for p in range(P):
+
+    def build_shard(p: int) -> dict:
         sp = scratch_dir / f"s{p:05d}.bin"
         width = 3 if weighted else 2
         raw = np.fromfile(sp, dtype=np.int64).reshape(-1, width)
         store.io.add_read(sp.stat().st_size)
         lo, hi = int(starts[p]), int(starts[p + 1])
         dst_local = raw[:, 1] - lo
-        order = np.argsort(dst_local, kind="stable")
+        order = np.argsort(_radix_key(dst_local, hi - lo), kind="stable")
         src_sorted = raw[order, 0]
         counts = np.bincount(dst_local, minlength=hi - lo)
         row = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
@@ -119,8 +134,11 @@ def preprocess_graph(
             ell = quantize_shard(ell, val_dtype)
         store.write_shard(ell)
         store.write_bloom(p, BloomFilter.build(ell.source_vertices(), num_bits=bloom_bits))
-        shard_meta.append({"rows": int(ell.shape[0]), "width": int(ell.shape[1]), "nnz": ell.nnz})
         sp.unlink()
+        return {"rows": int(ell.shape[0]), "width": int(ell.shape[1]), "nnz": ell.nnz}
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        shard_meta = list(ex.map(build_shard, range(P)))
     scratch_dir.rmdir()
 
     store.write_vertex_info(in_deg, out_deg)

@@ -27,15 +27,19 @@ with the reference's file names and field names:
 
 What the fields mean in the port (``analyze``):
 
+  * a mesh cell runs its SPMD program under ``spmd.representative_lane``:
+    every lane runs the same ops on the same shapes, so the trace runs
+    the first lane's and hands its results to the others, as XLA compiles
+    one program for every device.  Every count below is that lane's;
   * ``flops``: ``FlopCounterMode``'s count (matmul-class ops: ``mm``,
     ``bmm``, ``addmm``, ``baddbmm``, convolution, attention; forward,
-    remat recompute and backward) over the whole step, divided by the
-    lanes.  The port's dense layers run whole on the mesh's first lane
-    (``dist/context.py``), so the count is global and "per device" is
-    that global count / lanes.  XLA's ``cost_analysis`` also counts
-    elementwise ops and reductions, which this leaves out;
-  * ``bytes_accessed``: every non-view op's input plus output bytes,
-    unfused (XLA counts after fusion), divided by the lanes;
+    remat recompute and backward) of one lane's step.  ``flops_global``
+    is that times the lanes: the work the mesh does, a replicated
+    computation counted once a lane that runs it.  XLA's
+    ``cost_analysis`` also counts elementwise ops and reductions, which
+    this leaves out;
+  * ``bytes_accessed``: every non-view op's input plus output bytes on
+    one lane, unfused (XLA counts after fusion);
   * ``memory``: ``argument_size_in_bytes``, each input's bytes on one
     lane as ``NamedSharding.shard_shape`` cuts it (train: the state and
     the batch; prefill: the parameters and the batch; decode: the
@@ -44,23 +48,24 @@ What the fields mean in the port (``analyze``):
     ``donate_argnums`` (the train state, the decode caches);
     ``output_size_in_bytes``, the outputs cut the same way (logits split
     by ("batch", "seq", "vocab")); ``temp_size_in_bytes``, the peak of
-    the bytes held by storages the step's ops allocate, on a one-lane
-    cell.  On a larger mesh it is ``None`` and ``temp_size_note`` says
-    why: the meta run's intermediates are global (the dense layers run
-    whole on the first lane), and no rule turns their peak into one
-    lane's.  ``generated_code_size_in_bytes`` has no counterpart and is
-    left out;
+    the bytes held by storages one lane's ops allocate (the assembly of
+    a whole output from the lanes' parts is no lane's and is left out).
+    ``generated_code_size_in_bytes`` has no counterpart and is left
+    out;
   * ``collectives``: the per-lane result bytes of the collectives that
-    ``dist.spmd`` ran (forward and backward), by XLA's kind names;
-  * ``collectives_derived``: the weight all-gathers and gradient
-    reduce-scatters/all-reduces the reference's SPMD program runs and
-    the port's does not (its dense layers are unsharded), derived from
-    ``param_sharding`` by the rule of ``derived_collectives``.
+    ``dist.spmd`` ran (forward, remat recompute and backward), by XLA's
+    kind names: the weights' FSDP all-gathers and their gradients'
+    reduce-scatters, the gradient all-reduces, the tensor-parallel and
+    expert-parallel ones.  ``collectives_note`` names the bytes of each
+    kind that ``derived_collectives``' rule does not model (the weights
+    a layer gathers over 'model', the Mamba and xLSTM stopgap, the
+    long-context decode's gathers).  ``derived_collectives`` is that rule,
+    kept as a check: on a train step the all-gather and reduce-scatter
+    bytes, less the named ones, equal it.
 
-The roofline's ``collective_s`` counts both: ``collective_counted_s``
-and ``collective_derived_s`` are its two parts.  Its rates are an H100
-SXM's datasheet figures (``PEAK_FLOPS``, ``HBM_BW``); the link rate
-``LINK_BW`` is an assumption, and each record says so.
+The roofline's rates are an H100 SXM's datasheet figures (``PEAK_FLOPS``,
+``HBM_BW``); the link rate ``LINK_BW`` is an assumption, and each record
+says so.
 
 Usage (no GPU needed; the lanes are ``meta``):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
@@ -79,7 +84,6 @@ import types
 import weakref
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -96,6 +100,7 @@ from repro_torch.launch.shapes import (SHAPES, ShapeSpec, batch_shardings,
                                        cell_applicable, decode_input_specs)
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.model import Model, build_model
+from repro_torch.models.nn import ShardedParameter
 from repro_torch.models.xlstm import slstm_step_flops
 from repro_torch.train import OptConfig, make_init_state, make_train_step
 
@@ -244,16 +249,19 @@ class _ByteCounter(TorchDispatchMode):
         view = self._view.get(func)
         if view is None:
             view = self._view[func] = _is_view(func)
-        if not view:
-            self.bytes_accessed += sum(
-                t.numel() * t.element_size()
-                for t in (*_tensors(args), *_tensors(kwargs or {}), *outs))
         for t in outs:
             # an empty tensor holds no value (``torch.utils.checkpoint``
             # makes one on the default device)
             if t.device.type != "meta" and t.numel():
                 raise RuntimeError(f"dry run: {func} gave a tensor on "
                                    f"{t.device}, not meta")
+        if spmd.assembling.get():  # a whole value from the lanes' parts
+            return out
+        if not view:
+            self.bytes_accessed += sum(
+                t.numel() * t.element_size()
+                for t in (*_tensors(args), *_tensors(kwargs or {}), *outs))
+        for t in outs:
             self._track(t)
         return out
 
@@ -261,11 +269,10 @@ class _ByteCounter(TorchDispatchMode):
 @dataclasses.dataclass
 class Traced:
     """One cell's meta run.  ``flops``, ``bytes_accessed`` and
-    ``temp_peak`` are global (the whole step, every lane's work);
-    ``arguments``/``outputs``/``aliased`` are lists of (shape, dtype,
-    sharding or None); ``collectives`` are per-lane bytes by kind, of the
-    collectives ``dist.spmd`` ran; ``derived`` those
-    ``derived_collectives`` gives, which the port does not run."""
+    ``temp_peak`` are one lane's; ``arguments``/``outputs``/``aliased``
+    are lists of (shape, dtype, sharding or None); ``collectives`` are
+    per-lane bytes by kind, of the collectives ``dist.spmd`` ran, and
+    ``labelled`` the named parts of them (``spmd.Counts``)."""
     model: Model
     lanes: int
     flops: float
@@ -275,17 +282,12 @@ class Traced:
     outputs: list
     aliased: list
     collectives: dict
-    derived: dict
+    labelled: dict
 
 
 def _meta_mesh(mesh: Mesh | None) -> Mesh | None:
     """The same grid of lanes, all ``meta``."""
-    if mesh is None:
-        return None
-    grid = np.empty(mesh.devices.shape, dtype=object)
-    for idx in np.ndindex(grid.shape):
-        grid[idx] = torch.device("meta")
-    return Mesh(grid, mesh.axis_names)
+    return None if mesh is None else mesh.on_meta()
 
 
 def _spec_of(axes, shape):
@@ -319,13 +321,27 @@ def _state_entries(state, ctx: ShardCtx) -> list:
 
 
 def _tensor_entries(tree, shardings) -> list:
-    """(shape, dtype, sharding) of each tensor of ``tree`` beside the
-    same structure of shardings."""
+    """(shape, dtype, sharding) of each tensor (or ``spmd.Lanes``) of
+    ``tree`` beside the same structure of shardings."""
     ts, _ = tree_flatten(tree)
     ss, _ = tree_flatten(shardings, is_leaf=lambda x: x is None or
                          isinstance(x, NamedSharding))
     return [(tuple(t.shape), t.dtype, s) for t, s in zip(ts, ss)
-            if isinstance(t, torch.Tensor)]
+            if isinstance(t, (torch.Tensor, spmd.Lanes))]
+
+
+def _storages(tree) -> list:
+    """Every tensor a tree holds: a ``spmd.Lanes``' and an
+    ``nn.ShardedParameter``'s lanes' parts too."""
+    out = []
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, spmd.Lanes):
+            out.extend(t.parts.flat)
+        elif isinstance(t, ShardedParameter):
+            out.extend(t.pieces)
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    return out
 
 
 def _cache_entries(caches, cfg: ArchConfig, ctx: ShardCtx) -> list:
@@ -346,8 +362,8 @@ def lane_bytes(entries) -> int:
 
 def derived_collectives(leaves, ctx: ShardCtx, train: bool) -> dict:
     """The per-lane result bytes, by kind, of the weight and gradient
-    collectives the reference's SPMD program runs and the port's does
-    not (its dense layers run whole on the mesh's first lane).  The rule,
+    collectives of an FSDP program (kept as a check of the counted ones:
+    the module docstring).  The rule,
     for each parameter leaf under ``ctx.param_sharding``: a leaf split
     over the FSDP axes (``weight_rules["embed"]``) is all-gathered over
     them once a forward, its result still split over its other axes; a
@@ -414,9 +430,8 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
         arguments = state_entries + _tensor_entries(
             batch, batch_shardings(cfg, shape, ctx))
         aliased = state_entries
-        external = ([t for leaf in leaves for t in leaf.tensors]
-                    + tree_flatten(state.opt)[0] + [state.step]
-                    + tree_flatten(batch)[0])
+        external = _storages([list(leaf.tensors) for leaf in leaves]
+                             + [state.opt, state.ef, state.step, batch])
 
         def run():
             _, metrics = step(state, batch)
@@ -427,8 +442,8 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
         arguments = param_entries + _tensor_entries(
             batch, batch_shardings(cfg, shape, ctx))
         aliased = []
-        external = ([t for leaf in leaves for t in leaf.tensors]
-                    + tree_flatten(batch)[0])
+        external = _storages([list(leaf.tensors) for leaf in leaves]
+                             + [batch])
 
         def run():
             logits, caches, _ = model.prefill(batch, shape.seq_len)
@@ -438,6 +453,9 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
     else:  # decode
         caches, toks, _, enc = decode_input_specs(model, cfg, shape)
         c_entries = _cache_entries(caches, cfg, ctx)
+        if ctx.enabled:  # the lanes' caches (``Model.init_cache``)
+            caches = model.init_cache(shape.global_batch, shape.seq_len,
+                                      device="meta")
         arguments = (param_entries + c_entries
                      + [(tuple(toks.shape), i32,
                          ctx.logical_sharding(("batch", None))),
@@ -446,9 +464,8 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
             arguments.append((tuple(enc.shape), enc.dtype,
                               ctx.logical_sharding(("batch", None, None))))
         aliased = c_entries
-        external = ([t for leaf in leaves for t in leaf.tensors]
-                    + tree_flatten(caches)[0] + [toks]
-                    + ([] if enc is None else [enc]))
+        external = _storages([list(leaf.tensors) for leaf in leaves]
+                             + [caches, toks, enc])
 
         def run():
             logits, _ = model.decode_step(caches, toks, shape.seq_len - 1,
@@ -460,6 +477,7 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
     # serving steps run under inference mode, as ServeEngine runs them (a
     # graph would keep every intermediate alive)
     with torch.inference_mode(not train), \
+            spmd.representative_lane(), \
             FlopCounterMode(display=False) as fc, \
             spmd.count_collectives() as colls, \
             _ByteCounter(external) as bc:
@@ -468,8 +486,7 @@ def trace_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh | None, *,
                   bytes_accessed=float(bc.bytes_accessed),
                   temp_peak=bc.peak, arguments=arguments,
                   outputs=outputs + outputs_extra, aliased=aliased,
-                  collectives=dict(colls),
-                  derived=derived_collectives(leaves, ctx, train))
+                  collectives=dict(colls), labelled=dict(colls.labelled))
 
 
 def _logit_entries(logits, ctx: ShardCtx) -> list:
@@ -490,23 +507,23 @@ def analyze(traced: Traced) -> dict:
     memory = {
         "argument_size_in_bytes": lane_bytes(traced.arguments),
         "output_size_in_bytes": lane_bytes(traced.outputs),
-        "temp_size_in_bytes": traced.temp_peak if traced.lanes == 1 else None,
+        "temp_size_in_bytes": traced.temp_peak,
         "alias_size_in_bytes": lane_bytes(traced.aliased),
     }
-    if traced.lanes > 1:
-        memory["temp_size_note"] = (
-            "not derived: the port's dense layers run whole on the mesh's "
-            "first lane, so the meta run's intermediates are global and "
-            "no rule makes their peak one lane's")
-    return {
-        "flops": traced.flops / traced.lanes,
-        "bytes_accessed": traced.bytes_accessed / traced.lanes,
+    out = {
+        "flops": traced.flops,
+        "bytes_accessed": traced.bytes_accessed,
         "memory": memory,
         "collectives": dict(traced.collectives),
-        "collectives_derived": dict(traced.derived),
-        "flops_global": traced.flops,
+        "flops_global": traced.flops * traced.lanes,
         "lanes": traced.lanes,
     }
+    if traced.labelled:
+        out["collectives_note"] = (
+            "bytes the FSDP rule (derived_collectives) does not model, in "
+            "the totals above: " + "; ".join(
+                f"{k}: {v}" for k, v in sorted(traced.labelled.items())))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -593,9 +610,7 @@ def extrapolate(d1: float, d2: float, R: int, seq_scale: float = 1.0):
 
 def roofline_inputs(deltas: dict, R: int, seq_scale: float = 1.0) -> dict:
     """The per-lane totals at repeat ``R`` from ``analyze`` at r = 1, 2.
-    ``collective_bytes_per_device`` is the sum of its counted and derived
-    parts, each also given.  No sLSTM correction is added
-    (``slstm_flops_correction``)."""
+    No sLSTM correction is added (``slstm_flops_correction``)."""
     def colls(key):
         out = {}
         for kind in set(deltas[1][key]) | set(deltas[2][key]):
@@ -603,32 +618,24 @@ def roofline_inputs(deltas: dict, R: int, seq_scale: float = 1.0) -> dict:
                                         deltas[2][key].get(kind, 0), R,
                                         seq_scale))
         return out
-    counted, derived = colls("collectives"), colls("collectives_derived")
     return {
         "hlo_flops_per_device": extrapolate(
             deltas[1]["flops"], deltas[2]["flops"], R, seq_scale),
         "hlo_bytes_per_device": extrapolate(
             deltas[1]["bytes_accessed"], deltas[2]["bytes_accessed"], R,
             seq_scale),
-        "collective_bytes_per_device": {
-            k: counted.get(k, 0) + derived.get(k, 0)
-            for k in sorted(set(counted) | set(derived))},
-        "collective_counted_bytes_per_device": counted,
-        "collective_derived_bytes_per_device": derived,
+        "collective_bytes_per_device": colls("collectives"),
         "delta_r1": deltas[1], "delta_r2": deltas[2], "repeat": R,
     }
 
 
 def roofline(inputs: dict, counts: dict, shape: ShapeSpec,
              n_chips: int) -> dict:
-    """Per-lane roofline terms at the H100's rates.  ``collective_s``
-    holds the collectives the port runs (``collective_counted_s``) and
-    those derived from the parameter shardings (``collective_derived_s``)
-    over the assumed ``LINK_BW``."""
+    """Per-lane roofline terms at the H100's rates: ``collective_s`` is the
+    collectives the port runs over the assumed ``LINK_BW``."""
     flops = inputs["hlo_flops_per_device"]
     bytes_acc = inputs["hlo_bytes_per_device"]
-    counted = sum(inputs["collective_counted_bytes_per_device"].values())
-    derived = sum(inputs["collective_derived_bytes_per_device"].values())
+    colls = sum(inputs["collective_bytes_per_device"].values())
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
     model_flops = (6 if shape.kind == "train" else 2) \
@@ -636,9 +643,7 @@ def roofline(inputs: dict, counts: dict, shape: ShapeSpec,
     out = {
         "compute_s": flops / PEAK_FLOPS,
         "memory_s": bytes_acc / HBM_BW,
-        "collective_s": (counted + derived) / LINK_BW,
-        "collective_counted_s": counted / LINK_BW,
-        "collective_derived_s": derived / LINK_BW,
+        "collective_s": colls / LINK_BW,
         "model_flops": model_flops,
         "hlo_flops_global": flops * n_chips,
         "useful_flops_ratio": model_flops / max(flops * n_chips, 1.0),

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.context import NamedSharding, P, ShardCtx
-from repro_torch.models.model import layer_paths
+from repro_torch.models.model import _init_cache_block, layer_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +156,11 @@ def cache_shardings(caches: list[dict], cfg: ArchConfig,
 
 def decode_input_specs(model, cfg: ArchConfig, shape: ShapeSpec):
     """(caches, tokens, pos, enc_out) of one decode step, as ``meta``
-    tensors."""
+    tensors; the caches whole (the global arrays), also on a mesh."""
     B, S = shape.global_batch, shape.seq_len
-    caches = model.init_cache(B, S, device="meta")
+    caches = [_init_cache_block(block.desc, cfg, B, S, model.ctx,
+                                model.dtype, "meta")
+              for block in model.layers]
     toks = _i32(B, 1)
     pos = _i32()
     enc_out = None

@@ -9,7 +9,10 @@ Production behaviours wired in:
   * deterministic host-local data (restart-safe, straggler-free);
   * optional int8 error-feedback gradient compression (--grad-compression);
   * ``--mesh dxm``: a (data, model) mesh of d * m lanes in this process
-    (``dist.context.make_rules``'s layout, the MoE expert-parallel).
+    (``dist.context.make_rules``'s layout): every weight and its optimizer
+    state resident lane by lane, the model run as the reference's SPMD
+    program (FSDP and batch over 'data', tensor parallel over 'model',
+    the MoE expert-parallel).
 
 ``--device`` names the device: the GPU unless ``--device cpu`` is given
 (without a GPU it raises).  With ``--mesh`` it names the lanes' devices:
@@ -67,11 +70,12 @@ def main(argv=None) -> int:
         lanes = args.device.split(",")
         mesh = make_mesh((d, m), ("data", "model"),
                          lanes if len(lanes) > 1 else lanes[0])
+        # the whole batch lands on the first lane, which splits it
         device = mesh.first_device
     else:
         device = resolve_device(args.device)
-    model = build_model(cfg, make_rules(mesh, cfg), device=device,
-                        seed=args.seed)
+    model = build_model(cfg, make_rules(mesh, cfg),
+                        device=None if mesh else device, seed=args.seed)
     opt = OptConfig(name=args.optimizer, peak_lr=args.lr,
                     warmup_steps=max(args.steps // 20, 1),
                     decay_steps=args.steps)

@@ -13,18 +13,28 @@ while empty).
 
 On a mesh: GQA repeats the KV heads physically up to the tensor-parallel
 degree when needed (``kv_repeat_for``; kv 8 -> 16 on a 16-way 'model'
-axis), so caches hold ``K * rep`` heads.  Long-context decode
-(``kv_seq_sharded``) shards the cache's sequence over the 'data' lanes
-and combines their partial softmax statistics (``flash_decode_sharded``).
+axis), so caches hold ``K * rep`` heads.  ``attention_lanes`` is the
+layer as the reference's SPMD program runs it, lane by lane: wq is
+column-parallel over the q heads, wk and wv (KV heads replicated) give
+each lane the repeated heads its q heads read, wo is row-parallel and a
+``psum`` over 'model' sums its partial outputs; each weight's FSDP split
+of 'embed' is all-gathered before use.  A spec that leaves the q heads
+whole (the heads do not divide 'model') leaves the layer whole on every
+lane, with no ``psum``.  Long-context decode (``kv_seq_sharded``) shards
+the cache's sequence over the 'data' lanes, the whole batch on each, and
+combines their partial softmax statistics (``flash_decode_sharded``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+import numpy as np
+
 from repro_torch.dist import spmd
 from repro_torch.dist.context import DISABLED, P, ShardCtx
-from repro_torch.models.nn import Init
+from repro_torch.models.nn import (Init, dense_spec, lane_weights, spec_of,
+                                   split_over_model)
 
 NEG_INF = -1e30
 
@@ -178,24 +188,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def attention_apply(p: Attention, x, positions, cfg,
                     ctx: ShardCtx | None = None, *, causal: bool = True,
                     cache: dict | None = None, cache_index: int | None = None,
-                    kv_seq_sharded: bool = False,
                     cross_kv: torch.Tensor | None = None):
-    """Self- or cross-attention.
+    """Self- or cross-attention on whole tensors (a mesh runs
+    ``attention_lanes``).
 
     train/prefill: cache is None (or a dict to fill at positions [0, S)).
     decode: x is [B, 1, d], cache holds [B, S_max, K * rep, hd] and is
-    updated in place at ``cache_index`` (a Python int: no host sync);
-    with ``kv_seq_sharded`` on an enabled ``ctx`` it is attended lane by
-    lane (``flash_decode_sharded``).  Returns (out, cache).
+    updated in place at ``cache_index`` (a Python int: no host sync).
+    Returns (out, cache).
     """
     ctx = ctx or DISABLED
-    B, S, d = x.shape
-    hd = cfg.resolved_head_dim
     rep = kv_repeat_for(cfg, ctx)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q, k, v = _project(x, cross_kv, positions, p.wq, p.wk, p.wv, cfg, rep)
+    q = ctx.constrain(q, ("batch", "seq", "q_heads", "head_dim"))
+    k = ctx.constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    out = _attend(q, k, v, cfg, causal=causal and cross_kv is None,
+                  cache=cache, cache_index=cache_index)
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    return ctx.constrain(y, ("batch", "seq", "embed")), cache
+
+
+def _project(x, cross_kv, positions, wq, wk, wv, cfg, rep: int):
+    """q, k, v (RoPE applied, k and v repeated ``rep`` times)."""
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
     kv_src = cross_kv if cross_kv is not None else x
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p.wv)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, wv)
     if cfg.rope_type in ("rope", "partial", "mrope") and cross_kv is None:
         frac = cfg.rope_fraction if cfg.rope_type == "partial" else 1.0
         sections = mrope_sections(hd) if cfg.rope_type == "mrope" else None
@@ -206,46 +225,119 @@ def attention_apply(p: Attention, x, positions, cfg,
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    q = ctx.constrain(q, ("batch", "seq", "q_heads", "head_dim"))
-    k = ctx.constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    return q, k, v
+
+
+def _write_slot(cache: dict, k, v, cache_index: int, lo: int = 0) -> None:
+    """Decode: the new position's k and v into slot ``cache_index - lo``
+    of a cache (a ring buffer's slot modulo its length)."""
+    S_max = cache["k"].shape[1]
+    ring = "pos" in cache
+    slot = cache_index % S_max if ring else cache_index - lo
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    if ring:
+        cache["pos"][slot] = cache_index
+
+
+def _attend(q, k, v, cfg, *, causal: bool, cache: dict | None,
+            cache_index: int | None, expand=None):
+    """The attention of q over k, v; decode (``cache_index`` and one
+    query) writes them into ``cache`` and attends over it, prefill fills
+    ``cache`` with the last positions.  ``expand`` maps a cache's heads
+    to the ones q reads (None: as they are)."""
     window = cfg.sliding_window
-
+    S = q.shape[1]
+    expand = expand or (lambda t: t)
     if cache is not None and cache_index is not None and S == 1:
-        # decode: write the new KV into the cache, attend over it
-        S_max = cache["k"].shape[1]
-        ring = "pos" in cache
-        slot = cache_index % S_max if ring else cache_index
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        if ring:
-            cache["pos"][slot] = cache_index
-            out = flash_attention(q, cache["k"], cache["v"], causal=True,
-                                  window=window, q_offset=cache_index,
-                                  kv_positions=cache["pos"])
-        elif kv_seq_sharded and ctx.enabled:
-            out = flash_decode_sharded(q, cache["k"], cache["v"],
-                                       cache_index + 1, ctx,
-                                       q_offset=cache_index, window=window)
-        else:
-            out = flash_attention(q, cache["k"], cache["v"], causal=True,
-                                  window=window, q_offset=cache_index,
-                                  kv_len=cache_index + 1)
+        _write_slot(cache, k, v, cache_index)
+        if "pos" in cache:
+            return flash_attention(q, expand(cache["k"]), expand(cache["v"]),
+                                   causal=True, window=window,
+                                   q_offset=cache_index,
+                                   kv_positions=cache["pos"])
+        return flash_attention(q, expand(cache["k"]), expand(cache["v"]),
+                               causal=True, window=window,
+                               q_offset=cache_index, kv_len=cache_index + 1)
+    out = flash_attention(q, expand(k), expand(v), causal=causal,
+                          window=window)
+    if cache is not None:  # prefill fill (keep the last S_max positions)
+        _fill(cache, k, v, S)
+    return out
+
+
+def _fill(cache: dict, k, v, S: int, lo: int = 0,
+          total: int | None = None) -> None:
+    """Prefill: a cache of ``total`` slots (default: this one's) keeps
+    the last ``min(total, S)`` positions in its first slots; this cache
+    holds its slots ``[lo, lo + its length)``."""
+    n = cache["k"].shape[1]
+    kept = min(total or n, S)
+    hi = min(lo + n, kept)
+    if hi > lo:
+        cache["k"][:, :hi - lo] = k[:, S - kept + lo:S - kept + hi]
+        cache["v"][:, :hi - lo] = v[:, S - kept + lo:S - kept + hi]
+    if "pos" in cache:
+        cache["pos"].fill_(-1)
+        cache["pos"][:kept] = torch.arange(S - kept, S, device=k.device)
+
+
+def attention_lanes(p: Attention, x, positions, cfg, ctx: ShardCtx, *,
+                    causal: bool = True, caches=None,
+                    cache_index: int | None = None,
+                    kv_seq_sharded: bool = False, cross_kv=None):
+    """The layer on lanes (module docstring).  ``x``, ``positions`` and
+    ``cross_kv`` are lanes arrays split over the batch axes; ``caches``
+    a lanes array of each lane's cache dict (its heads, and with
+    ``kv_seq_sharded`` its sequence slice of the whole batch).  -> the
+    lanes array of the output, whole over 'model'."""
+    mesh = ctx.mesh
+    w = lane_weights(p, ctx)
+    split = split_over_model(dense_spec(spec_of(p.wq, ctx), ctx), 1)
+    tp = mesh.shape["model"] if split else 1
+    H, rep = cfg.num_heads, kv_repeat_for(cfg, ctx)
+    Kr = cfg.num_kv_heads * rep
+    Hl = H // tp
+    me = (spmd.axis_index(mesh, "model") if split
+          else np.zeros(mesh.devices.shape, dtype=np.int64))
+    even = Kr % tp == 0
+    cross = cross_kv is not None
+    decode = cache_index is not None and x.flat[0].shape[1] == 1
+    sharded_decode = (kv_seq_sharded and caches is not None and decode
+                      and not cfg.sliding_window)
+
+    def project(wl, xl, pos, kv, m):
+        # the original KV heads this lane's repeated heads come from
+        klo, khi = (m * Kr // tp, (m + 1) * Kr // tp) if even else (0, Kr)
+        olo, ohi = klo // rep, (khi - 1) // rep + 1
+        q, k, v = _project(xl, kv, pos, wl.wq, wl.wk[:, olo:ohi],
+                           wl.wv[:, olo:ohi], cfg, rep)
+        off = klo - olo * rep
+        return q, k[:, :, off:off + khi - klo], v[:, :, off:off + khi - klo]
+
+    def expand_for(m):
+        if even or not split:
+            return None
+        # heads the q heads of this lane read, one a q head
+        return lambda t: torch.repeat_interleave(
+            t, H // Kr, dim=2)[:, :, m * Hl:(m + 1) * Hl]
+
+    q, k, v = spmd.lanewise(project, w, x, positions, cross_kv, me)
+    if sharded_decode:
+        out = _sharded_decode_lanes(q, k, v, caches, cache_index, cfg, ctx)
     else:
-        out = flash_attention(q, k, v, causal=causal and cross_kv is None,
-                              window=window)
-        if cache is not None:  # prefill fill (keep the last S_max positions)
-            S_max = cache["k"].shape[1]
-            kept = min(S_max, S)
-            cache["k"][:, :kept] = k[:, S - kept:]
-            cache["v"][:, :kept] = v[:, S - kept:]
-            if "pos" in cache:
-                cache["pos"].fill_(-1)
-                cache["pos"][:kept] = torch.arange(S - kept, S,
-                                                   device=x.device)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
-    return ctx.constrain(y, ("batch", "seq", "embed")), cache
-
-
+        seq_split = kv_seq_sharded and not cfg.sliding_window
+        out = spmd.lanewise(
+            lambda ql, kl, vl, cache, m: _attend(
+                ql, kl, vl, cfg, causal=causal and not cross,
+                cache=None if seq_split else cache,
+                cache_index=cache_index, expand=expand_for(int(m))),
+            q, k, v, caches, me)
+        if seq_split and caches is not None:
+            _fill_sharded_lanes(k, v, caches, ctx)
+    y = spmd.lanewise(lambda o, wl: torch.einsum("bshk,hkd->bsd", o, wl.wo),
+                      out, w)
+    return spmd.psum(y, "model", mesh) if split else y
 def flash_decode_sharded(q, k_cache, v_cache, kv_len: int, ctx: ShardCtx, *,
                          q_offset: int, window: int = 0):
     """Sequence-parallel decode (long_500k): the KV cache's sequence is
@@ -253,10 +345,59 @@ def flash_decode_sharded(q, k_cache, v_cache, kv_len: int, ctx: ShardCtx, *,
     of ``Sl`` positions, and the partial softmax statistics combine with
     ``pmax`` and ``psum`` over 'data' (flash-decoding, lane by lane)."""
     mesh = ctx.mesh
+    out = _flash_decode_lanes(spmd.shard(q, P(), mesh),
+                              spmd.shard(k_cache, P(None, "data"), mesh),
+                              spmd.shard(v_cache, P(None, "data"), mesh),
+                              kv_len, ctx, q_offset=q_offset, window=window)
+    return spmd.unshard(out, P(), mesh)
+
+
+def _sharded_decode_lanes(q, k, v, caches, cache_index: int, cfg,
+                          ctx: ShardCtx):
+    """Long-context decode on lanes: q, k and v of the new position
+    gathered over the batch axes, k and v written into the lane whose
+    sequence slice holds ``cache_index``, the flash-decode over the
+    slices, and each lane's batch rows of the result."""
+    mesh = ctx.mesh
+    dp = ctx.rules.get("batch")
+    qa, ka, va = (spmd.all_gather(t, dp, 0, mesh, label="long-context decode")
+                  for t in (q, k, v))
+    di = spmd.axis_index(mesh, "data")
+
+    def write(cache, kl, vl, d):
+        n = cache["k"].shape[1]
+        if int(d) * n <= cache_index < (int(d) + 1) * n:
+            _write_slot(cache, kl, vl, cache_index, lo=int(d) * n)
+    spmd.lanewise(write, caches, ka, va, di)
+    out = _flash_decode_lanes(
+        qa, spmd.lanewise(lambda c: c["k"], caches),
+        spmd.lanewise(lambda c: c["v"], caches), cache_index + 1, ctx,
+        q_offset=cache_index, window=cfg.sliding_window)
+    bi = spmd.axis_index(mesh, dp)
+    Bl = q.flat[0].shape[0]
+    return spmd.lanewise(lambda o, b: o.narrow(0, int(b) * Bl, Bl), out, bi)
+
+
+def _fill_sharded_lanes(k, v, caches, ctx: ShardCtx) -> None:
+    """Long-context prefill: each lane keeps its sequence slice of the
+    whole batch's k and v (gathered over the batch axes)."""
+    mesh = ctx.mesh
+    dp = ctx.rules.get("batch")
+    ka, va = (spmd.all_gather(t, dp, 0, mesh, label="long-context prefill")
+              for t in (k, v))
+    n = mesh.shape["data"]
+    spmd.lanewise(lambda c, kl, vl, d: _fill(
+        c, kl, vl, kl.shape[1], lo=int(d) * c["k"].shape[1],
+        total=n * c["k"].shape[1]), caches, ka, va,
+        spmd.axis_index(mesh, "data"))
+
+
+def _flash_decode_lanes(qs, ks, vs, kv_len: int, ctx: ShardCtx, *,
+                        q_offset: int, window: int = 0):
+    """The flash-decode of ``flash_decode_sharded`` on lanes arrays: q
+    whole on each lane, k and v each lane's sequence slice."""
+    mesh = ctx.mesh
     axis = "data"
-    qs = spmd.shard(q, P(), mesh)
-    ks = spmd.shard(k_cache, P(None, axis), mesh)
-    vs = spmd.shard(v_cache, P(None, axis), mesh)
 
     def local(qb, kb, vb, me):
         Sl = kb.shape[1]
@@ -284,7 +425,7 @@ def flash_decode_sharded(q, k_cache, v_cache, kv_len: int, ctx: ShardCtx, *,
         lambda a, c: a * c.permute(0, 3, 1, 2)[..., None], acc, corr),
         axis, mesh)
 
-    def finish(a, s):
+    def finish(a, s, qb):
         out = a / torch.clamp_min(s, 1e-30).permute(0, 3, 1, 2)[..., None]
-        return out.reshape(q.shape).to(q.dtype)
-    return spmd.unshard(spmd.lanewise(finish, acc_all, l_all), P(), mesh)
+        return out.reshape(qb.shape).to(qb.dtype)
+    return spmd.lanewise(finish, acc_all, l_all, qs)

@@ -12,7 +12,10 @@ group ``gi``, block ``b{i}`` of a unit of length ``u``, is the port's layer
 of the reference's tree, holding the port's parameters that make it up.
 The optimizer, the error feedback and the checkpoints work leaf by leaf,
 so a statistic the reference takes over a stacked leaf spans every layer
-of its group here too.  ``to_reference`` and ``state_to_reference``/
+of its group here too.  On a mesh a leaf's tensors are
+``nn.ShardedParameter``s: ``load_reference_params`` splits each of the
+reference's arrays into the lanes' pieces, and ``Leaf.stack``/``write``
+see the leaf whole (``Leaf.lanes``/``write_lanes`` lane by lane).  ``to_reference`` and ``state_to_reference``/
 ``state_from_reference`` convert the parameters and the optimizer and
 error-feedback state (``m``, ``v``, ``master``, ``vr``, ``vc``, ``ef``)
 to and from the reference's trees of numpy arrays.
@@ -24,7 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.dist import spmd
+from repro_torch.dist.context import P
 from repro_torch.models.model import Model, layer_groups
+from repro_torch.models.nn import ShardedParameter, assign, named_weights, whole
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -95,7 +101,7 @@ def load_reference_params(model: Model, values: dict) -> Model:
     A missing or extra leaf, or a shape or dtype that differs, raises
     naming its path."""
     state = reference_state(model, values)
-    own = model.state_dict()
+    own = dict(named_weights(model))
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
@@ -106,9 +112,8 @@ def load_reference_params(model: Model, values: dict) -> Model:
             raise ValueError(f"{key}: reference {tuple(val.shape)} "
                              f"{val.dtype}, port {tuple(own[key].shape)} "
                              f"{own[key].dtype}")
-    with torch.no_grad():
-        for key, param in own.items():
-            param.copy_(state[key])
+    for key, param in own.items():
+        assign(param, state[key])
     return model
 
 
@@ -144,26 +149,56 @@ class Leaf:
         one = tuple(self.tensors[0].axes)
         return ("layers",) + one if self.stacked else one
 
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.tensors[0], ShardedParameter)
+
+    @property
+    def spec(self) -> P:
+        """The stacked leaf's spec on its mesh (sharded leaves only)."""
+        spec = tuple(self.tensors[0].spec)
+        spec += (None,) * (len(self.tensors[0].shape) - len(spec))
+        return P(None, *spec) if self.stacked else P(*spec)
+
     def stack(self, parts=None) -> torch.Tensor:
-        """``parts`` (default: the parameters' values), one per tensor, as
-        the reference's array of this leaf."""
-        parts = [t.detach() for t in self.tensors] if parts is None else parts
+        """``parts`` (default: the parameters' whole values), one per
+        tensor, as the reference's array of this leaf."""
+        parts = [whole(t) for t in self.tensors] if parts is None else parts
         return torch.stack(parts) if self.stacked else parts[0]
 
-    @torch.no_grad()
     def write(self, value: torch.Tensor) -> None:
         """Copy the reference-shaped ``value`` into the parameters, casting
         to their dtype."""
         for t, v in zip(self.tensors,
                         value.unbind(0) if self.stacked else (value,)):
-            t.copy_(v)
+            assign(t, v)
+
+    def lanes(self, parts=None):
+        """A sharded leaf lane by lane: each lane's pieces (or ``parts``,
+        one lanes array a tensor), stacked as the reference's shard of
+        the leaf."""
+        parts = ([t.lanes([p.detach() for p in t.pieces])
+                  for t in self.tensors] if parts is None else parts)
+        if not self.stacked:
+            return parts[0]
+        return spmd.lanewise(lambda *ts: torch.stack(ts), *parts)
+
+    @torch.no_grad()
+    def write_lanes(self, values) -> None:
+        """Copy each lane's shard of the leaf into its pieces."""
+        for idx in spmd.lane_indices(values.shape):
+            lane = int(np.ravel_multi_index(idx, values.shape))
+            v = values[idx]
+            for t, vr in zip(self.tensors,
+                             v.unbind(0) if self.stacked else (v,)):
+                t.pieces[lane].copy_(vr)
 
 
 def reference_leaves(model: Model) -> list[Leaf]:
     """One ``Leaf`` for each leaf of the reference's parameter tree, in
     the order ``jax.tree_util`` flattens it (dict keys sorted at every
     level), by ``reference_state``'s index rule."""
-    params = dict(model.named_parameters())
+    params = dict(named_weights(model))
     stacked = _stacked_groups(model)
     out = []
     for name, t in params.items():

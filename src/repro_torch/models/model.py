@@ -20,11 +20,24 @@ Modes: ``loss_fn`` (training: the masked next-token loss), ``forward``
 and ``decode_step`` (one token against the caches and states, updated in
 place).  Logits are float32 over the padded vocab.
 
-On a mesh (``ctx``, ``dist.context.make_rules``) the parameters and the
-dense layers stay whole on the mesh's first lane; the expert-parallel MoE
-and the sequence-sharded decode run lane by lane, as the reference's
-``shard_map`` code does, and the KV caches repeat their heads for tensor
-parallelism (``kv_repeat_for``).
+On a mesh (``ctx``, ``dist.context.make_rules``) every weight is
+resident lane by lane as ``ctx.param_sharding`` cuts it
+(``nn.ShardedParameter``), and the model runs as the reference's SPMD
+program, lane by lane over ``dist.spmd``'s collectives: the activations
+are split over the data axes ('batch'); each weight's FSDP split of
+'embed' is all-gathered before use; attention and the FFNs are tensor
+parallel over 'model' (a ``psum`` after the row-parallel ``wo`` and
+``w_down``); the embedding is vocab-parallel (a masked lookup, then a
+``psum``), and so are the logits and the loss's log-softmax (``pmax`` and
+``psum`` over 'model').  The norms are replicated.  The MoE runs its
+expert-parallel paths on the lane's own expert shards.  Mamba, mLSTM and
+sLSTM gather their weights (and their states' 'model' splits) whole
+before use and compute replicated over 'model', a stopgap named in the
+collective counts.  Caches are one dict a layer whose leaves are
+``spmd.Lanes`` laid out as ``launch.shapes.cache_shardings`` lays them
+out (a long-context cache's sequence over 'data', the whole batch on each
+lane, as ``flash_decode_sharded`` reads it).  The entry points take and
+return whole tensors.
 
 Training recomputes each reference *unit* (one block for gemma, the
 8-block unit for jamba and xlstm) in the backward pass when ``remat`` is
@@ -43,14 +56,20 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+import numpy as np
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
-from repro_torch.dist.context import DISABLED, ShardCtx
+from repro_torch.dist import spmd
+from repro_torch.dist.context import DISABLED, P, ShardCtx, _axes_tuple
 from repro_torch.models.attention import (Attention, attention_apply,
-                                          kv_repeat_for, positions_for)
-from repro_torch.models.ffn import FFN, ffn_apply
-from repro_torch.models.moe import MoE, moe_apply
-from repro_torch.models.nn import DTYPES, Init, Norm, apply_norm
+                                          attention_lanes, kv_repeat_for,
+                                          positions_for)
+from repro_torch.models.ffn import FFN, ffn_apply, ffn_lanes
+from repro_torch.models.moe import MoE, moe_apply, moe_lanes
+from repro_torch.models.nn import (DTYPES, Init, Norm, apply_norm,
+                                   dense_spec, gather_to, lane_weights,
+                                   named_weights, split_over_model)
 from repro_torch.models.ssm import Mamba, init_mamba_state, mamba_apply
 from repro_torch.models.xlstm import (MLSTM, SLSTM, init_mlstm_state,
                                       init_slstm_state, mlstm_apply,
@@ -169,8 +188,38 @@ def _init_cache_block(desc, cfg: ArchConfig, batch: int, cache_len: int,
     return c
 
 
+def cache_spec(mixer: str, key: str, shape, cfg: ArchConfig, ctx: ShardCtx,
+               long_context: bool = False) -> P:
+    """The spec of one cache leaf on a mesh: ``launch.shapes.
+    cache_shardings``' rule (the reference's), but for a long-context
+    attention cache of an arch without a sliding window, whose sequence
+    splits over 'data' and whose batch stays whole, as
+    ``flash_decode_sharded`` reads it (the reference's rule names 'data'
+    twice there, which jax refuses)."""
+    axes: list = [None] * len(shape)
+    dp = ctx.rules.get("batch")
+    tp = ctx.rules.get("q_heads")
+    tp_n = ctx.axis_size("q_heads")
+    if mixer == "attn":
+        if key == "pos":
+            return P(*axes)
+        if long_context and not cfg.sliding_window:
+            axes[1] = "data"
+        else:
+            axes[0] = dp
+        if tp is not None and shape[2] % tp_n == 0:
+            axes[2] = tp
+    elif mixer == "mamba":  # both states split their axis 1 (the rule's)
+        axes[0] = dp
+        if tp is not None and shape[1] % tp_n == 0:
+            axes[1] = tp
+    else:
+        axes[0] = dp
+    return P(*axes)
+
+
 def _apply_block(p: Block, x, positions, cfg: ArchConfig, ctx: ShardCtx, *,
-                 cache, cache_index, enc_out, causal, long_context: bool,
+                 cache, cache_index, enc_out, causal,
                  ssm_dtype: str = "float32", unroll: bool = False):
     mixer, ffn = p.desc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -179,8 +228,7 @@ def _apply_block(p: Block, x, positions, cfg: ArchConfig, ctx: ShardCtx, *,
         a, _ = attention_apply(
             p.attn, h, positions, cfg, ctx, causal=causal,
             cache=None if cache is None else cache["attn"],
-            cache_index=cache_index,
-            kv_seq_sharded=long_context and not cfg.sliding_window)
+            cache_index=cache_index)
     elif mixer == "mamba":
         # unroll: one full-sequence chunk (the reference's roofline mode)
         a, st = mamba_apply(p.mamba, h, cfg.mamba, ctx,
@@ -235,10 +283,15 @@ class Model(nn.Module):
     serving.
 
     ``ctx`` (default: the disabled context) is the mesh layout from
-    ``dist.context.make_rules``.  ``device=None`` means the mesh's first
-    lane, or ``"cuda"`` without a mesh (raising when there is no GPU);
+    ``dist.context.make_rules``; on an enabled one every weight is
+    resident lane by lane, each lane's piece on its lane's device
+    (``nn.ShardedParameter``), and the model runs as the reference's SPMD
+    program (the module docstring).  ``device=None`` means the lanes'
+    devices on a mesh (each weight drawn whole on the first lane's, then
+    cut), or ``"cuda"`` without a mesh (raising when there is no GPU);
     ``device="meta"`` allocates nothing (``param_count``).  Parameters are
-    drawn from a ``torch.Generator`` seeded by ``seed``.  The training
+    drawn from a ``torch.Generator`` seeded by ``seed``: the same values
+    with a mesh or without.  The training
     knobs are the reference's: ``remat`` recomputes each unit in the
     backward pass, keeping nothing (``remat_policy="nothing"``) or the
     matmul outputs (``"dots"``); ``unroll`` scans Mamba's whole sequence
@@ -266,7 +319,7 @@ class Model(nn.Module):
             device = (self.ctx.mesh.first_device if self.ctx.enabled
                       else "cuda")
         dev = resolve_device(device)
-        init = Init(dev, seed)
+        init = Init(dev, seed, self.ctx)
         dtype = self.dtype
         V = padded_vocab(cfg)
         self.embed = init.embed(V, cfg.d_model, dtype)
@@ -292,8 +345,7 @@ class Model(nn.Module):
         return self.embed.device
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.parameters())
-
+        return sum(w.numel() for _, w in named_weights(self))
     # ---- stacks ----------------------------------------------------------
     def _run_groups(self, x, positions, *, encoder: bool = False,
                     caches: list | None = None, cache_index: int | None = None,
@@ -308,14 +360,21 @@ class Model(nn.Module):
                     layers[i], x, positions, self.cfg, self.ctx,
                     cache=None if caches is None else caches[i],
                     cache_index=cache_index, enc_out=enc_out, causal=causal,
-                    long_context=self.long_context, ssm_dtype=self.ssm_dtype,
+                    ssm_dtype=self.ssm_dtype,
                     unroll=self.unroll)
                 aux_total = aux_total + aux
             return x, aux_total
 
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._by_units(run_unit, x, aux_total, encoder=encoder,
+                              caches=caches)
+
+    def _by_units(self, run_unit, x, aux_total, *, encoder: bool, caches):
+        """``run_unit(first, count, x, aux)`` over every layer, each
+        reference unit recomputed in the backward under remat."""
         if not (self.remat and caches is None and torch.is_grad_enabled()):
-            return run_unit(0, len(layers), x, aux_total)
+            n = len(self.enc_layers if encoder else self.layers)
+            return run_unit(0, n, x, aux_total)
         first = 0
         for unit, repeat in layer_groups(self.cfg, encoder=encoder):
             for _ in range(repeat):
@@ -364,6 +423,10 @@ class Model(nn.Module):
 
     def forward(self, batch: dict):
         """Teacher-forced logits [B, S, V] (float32) and the MoE aux loss."""
+        if self.ctx.enabled:
+            with self._root() as root:
+                logits, aux = self._forward_lanes(batch, root)
+            return self._unshard_logits(logits), aux.flat[0]
         enc_out = self._encode(batch) if self.cfg.is_encdec else None
         x, positions = self._embed_inputs(batch)
         x, aux = self._run_groups(x, positions, enc_out=enc_out)
@@ -375,6 +438,12 @@ class Model(nn.Module):
         likelihood over ``targets >= 0``, the log-softmax taken over the
         padded vocabulary, plus ``0.01 * aux`` for MoE configs.  As in the
         reference, ``"ce"`` is that total, the aux term included."""
+        if self.ctx.enabled:
+            with self._root() as root:
+                logits, aux = self._forward_lanes(batch, root)
+                loss = self._loss_lanes(logits, batch["targets"], aux)
+            loss, aux = loss.flat[0], aux.flat[0]
+            return loss, {"ce": loss, "aux": aux}
         logits, aux = self(batch)
         targets = batch["targets"]
         if logits.shape[1] != targets.shape[1]:  # vlm: patches prepended
@@ -390,14 +459,47 @@ class Model(nn.Module):
     # ---- serving ---------------------------------------------------------
     def init_cache(self, batch_size: int, cache_len: int,
                    device=None) -> list[dict]:
-        """One cache dict a layer, on ``device`` (default: the model's)."""
-        return [_init_cache_block(block.desc, self.cfg, batch_size,
-                                  cache_len, self.ctx, self.dtype,
-                                  self.device if device is None else device)
-                for block in self.layers]
+        """One cache dict a layer, on ``device`` (default: the model's).
+        On a mesh each leaf is an ``spmd.Lanes`` (``cache_spec``), on the
+        lanes' devices (``device="meta"``: on ``meta``)."""
+        if not self.ctx.enabled:
+            return [_init_cache_block(block.desc, self.cfg, batch_size,
+                                      cache_len, self.ctx, self.dtype,
+                                      self.device if device is None
+                                      else device)
+                    for block in self.layers]
+        mesh = self.ctx.mesh
+        if device is not None and torch.device(device).type == "meta":
+            mesh = mesh.on_meta()
+        out = []
+        for block in self.layers:
+            mixer = block.desc[0]
+            whole_c = _init_cache_block(block.desc, self.cfg, batch_size,
+                                        cache_len, self.ctx, self.dtype,
+                                        mesh.first_device)
+            out.append({m: {k: spmd.Lanes.split(t, cache_spec(
+                mixer, k, t.shape, self.cfg, self.ctx, self.long_context),
+                mesh) for k, t in leaves.items()}
+                for m, leaves in whole_c.items()})
+            del whole_c
+        return out
 
     def prefill(self, batch: dict, cache_len: int):
         """-> (last-position logits [B, 1, V], caches, enc_out | None)."""
+        if self.ctx.enabled:
+            with self._root() as root:
+                enc = (self._encode_lanes(batch, root) if self.cfg.is_encdec
+                       else None)
+                x, positions = self._embed_lanes(batch, root)
+                caches = self.init_cache(batch["tokens"].shape[0],
+                                         cache_len,
+                                         device=batch["tokens"].device)
+                x, _ = self._run_lanes(x, positions, caches=caches,
+                                       enc_out=enc)
+                x = spmd.lanewise(lambda t: t[:, -1:], x)
+                logits = self._logits_lanes(x, root)
+            return (self._unshard_logits(logits), caches,
+                    None if enc is None else self._unshard_batch(enc))
         enc_out = self._encode(batch) if self.cfg.is_encdec else None
         x, positions = self._embed_inputs(batch)
         caches = self.init_cache(x.shape[0], cache_len)
@@ -408,12 +510,336 @@ class Model(nn.Module):
                     enc_out=None):
         """tokens: [B, 1]; pos: a Python int (uniform across the batch, so
         no host sync).  Updates ``caches`` in place; -> (logits, caches)."""
+        if self.ctx.enabled:
+            with self._root() as root:
+                enc = (None if enc_out is None else
+                       self._split_batch(enc_out.to(self.dtype)))
+                x = self._lookup_lanes(self._split_batch(tokens), root)
+                positions = spmd.lanewise(
+                    lambda t: positions_for(self.cfg, t.shape[0], 1,
+                                            offset=pos, device=t.device), x)
+                x, _ = self._run_lanes(x, positions, caches=caches,
+                                       cache_index=pos, enc_out=enc)
+                logits = self._logits_lanes(x, root)
+            return self._unshard_logits(logits), caches
         x = self._scale_embed(self.embed[tokens])
         positions = positions_for(self.cfg, x.shape[0], 1, offset=pos,
                                   device=x.device)
         x, _ = self._run_groups(x, positions, caches=caches, cache_index=pos,
                                 enc_out=enc_out)
         return self._logits(x), caches
+
+
+
+    # ---- the mesh: the reference's SPMD program, lane by lane ------------
+    def _root(self):
+        return _Root(self.ctx, regather=self.remat and
+                     torch.is_grad_enabled())
+
+    def _dp(self):
+        return self.ctx.rules.get("batch")
+
+    def _split_batch(self, t):
+        """A whole batch tensor split over the batch axes (dim 0)."""
+        return spmd.shard(t, P(self._dp()), self.ctx.mesh)
+
+    def _unshard_batch(self, parts):
+        return spmd.unshard(parts, P(self._dp()), self.ctx.mesh)
+
+    def _vocab_split(self) -> bool:
+        return split_over_model(dense_spec(self.embed.spec, self.ctx), 0)
+
+    def _unshard_logits(self, logits):
+        return spmd.unshard(logits, P(self._dp(), None, "model"
+                                      if self._vocab_split() else None),
+                            self.ctx.mesh)
+
+    def _norm_lanes(self, x, p: Norm):
+        w = lane_weights(p, self.ctx)
+        return spmd.lanewise(
+            lambda wl, t: apply_norm(t, wl, self.cfg.norm_type), w, x)
+
+    def _lookup_lanes(self, tokens, root):
+        """The vocab-parallel embedding: each lane looks its tokens up in
+        its vocab range (zeros outside it), then a ``psum`` over
+        'model'."""
+        mesh = self.ctx.mesh
+        E = root.gather(self.embed, dense_spec(self.embed.spec, self.ctx))
+        if not self._vocab_split():
+            x = spmd.lanewise(lambda e, t: e[t], E, tokens)
+        else:
+            def lookup(e, t, m):
+                Vl = e.shape[0]
+                i = t - int(m) * Vl
+                inside = (i >= 0) & (i < Vl)
+                rows = e[torch.where(inside, i, 0)]
+                return rows * inside[..., None].to(rows.dtype)
+            x = spmd.psum(spmd.lanewise(lookup, E, tokens,
+                                        spmd.axis_index(mesh, "model")),
+                          "model", mesh)
+        return spmd.lanewise(self._scale_embed, x)
+
+    def _embed_lanes(self, batch: dict, root):
+        cfg = self.cfg
+        x = self._lookup_lanes(self._split_batch(batch["tokens"]), root)
+        if cfg.modality_stub == "image_patches" and "patches" in batch:
+            x = spmd.lanewise(lambda pt, t: torch.cat([pt.to(t.dtype), t],
+                                                      dim=1),
+                              self._split_batch(batch["patches"]), x)
+        if cfg.rope_type == "mrope" and "positions" in batch:
+            positions = self._split_batch(batch["positions"])
+        else:
+            positions = spmd.lanewise(lambda t: positions_for(
+                cfg, t.shape[0], t.shape[1], device=t.device), x)
+        return x, positions
+
+    def _logits_lanes(self, x, root):
+        x = self._norm_lanes(x, self.norm_f)
+        if self.cfg.tie_embeddings:
+            W = root.gather(self.embed, dense_spec(self.embed.spec,
+                                                   self.ctx))
+            return spmd.lanewise(lambda t, w: (t @ w.T).float(), x, W)
+        W = root.gather(self.unembed, dense_spec(self.unembed.spec,
+                                                 self.ctx))
+        return spmd.lanewise(lambda t, w: (t @ w).float(), x, W)
+
+    def _encode_lanes(self, batch: dict, root):
+        x = spmd.lanewise(lambda t: t.to(self.dtype),
+                          self._split_batch(batch["frames"]))
+        positions = spmd.lanewise(lambda t: positions_for(
+            self.cfg, t.shape[0], t.shape[1], device=t.device), x)
+        x, _ = self._run_lanes(x, positions, encoder=True, causal=False)
+        return self._norm_lanes(x, self.enc_norm_f)
+
+    def _forward_lanes(self, batch: dict, root):
+        enc = self._encode_lanes(batch, root) if self.cfg.is_encdec else None
+        x, positions = self._embed_lanes(batch, root)
+        x, aux = self._run_lanes(x, positions, enc_out=enc)
+        return self._logits_lanes(x, root), aux
+
+    def _loss_lanes(self, logits, targets, aux):
+        """The vocab-parallel masked next-token loss (``loss_fn``): the
+        log-softmax's max by ``pmax`` and its sum by ``psum`` over
+        'model', the target's logit from the lane that holds it."""
+        mesh = self.ctx.mesh
+        targets = self._split_batch(targets)
+        S = targets.flat[0].shape[1]
+        logits = spmd.lanewise(lambda z: z[:, -S:], logits)  # vlm patches
+        if self._vocab_split():
+            m = spmd.pmax(spmd.lanewise(
+                lambda z: z.detach().amax(dim=-1, keepdim=True), logits),
+                "model", mesh)
+            s = spmd.psum(spmd.lanewise(
+                lambda z, mx: torch.exp(z - mx).sum(dim=-1, keepdim=True),
+                logits, m), "model", mesh)
+
+            def pick(z, t, mi):
+                Vl = z.shape[-1]
+                i = t.long() - int(mi) * Vl
+                inside = (i >= 0) & (i < Vl)
+                got = torch.gather(z, -1, torch.where(inside, i, 0)[..., None])
+                return got[..., 0] * inside.to(z.dtype)
+            zt = spmd.psum(spmd.lanewise(pick, logits, targets,
+                                         spmd.axis_index(mesh, "model")),
+                           "model", mesh)
+            ll = spmd.lanewise(
+                lambda t, mx, sm: (t - mx[..., 0]) - torch.log(sm[..., 0]),
+                zt, m, s)
+        else:
+            ll = spmd.lanewise(lambda z, t: torch.gather(
+                torch.log_softmax(z, dim=-1), -1,
+                t.clamp_min(0)[..., None].long())[..., 0], logits, targets)
+        num = spmd.lanewise(lambda v, t: -(v * (t >= 0).float()).sum(), ll,
+                            targets)
+        den = spmd.lanewise(lambda t: (t >= 0).float().sum(), targets)
+        if self._dp() is not None:
+            num = spmd.psum(num, self._dp(), mesh)
+            den = spmd.psum(den, self._dp(), mesh)
+        loss = spmd.lanewise(lambda a, b: a / torch.clamp_min(b, 1.0), num,
+                             den)
+        if self.cfg.moe is not None:
+            loss = spmd.lanewise(lambda a, b: a + 0.01 * b, loss, aux)
+        return loss
+
+    def _run_lanes(self, x, positions, *, encoder: bool = False,
+                   caches: list | None = None,
+                   cache_index: int | None = None, enc_out=None,
+                   causal: bool = True):
+        """``_run_groups`` on lanes arrays."""
+        layers = self.enc_layers if encoder else self.layers
+
+        def run_unit(first: int, count: int, x, aux_total):
+            for i in range(first, first + count):
+                x, aux = self._block_lanes(
+                    layers[i], x, positions,
+                    cache=None if caches is None else caches[i],
+                    cache_index=cache_index, enc_out=enc_out, causal=causal)
+                aux_total = spmd.lanewise(torch.add, aux_total, aux)
+            return x, aux_total
+
+        aux_total = spmd.lanewise(lambda t: torch.zeros(
+            (), dtype=torch.float32, device=t.device), x)
+        return self._by_units(run_unit, x, aux_total, encoder=encoder,
+                              caches=caches)
+
+    def _block_lanes(self, p: Block, x, positions, *, cache, cache_index,
+                     enc_out, causal):
+        cfg, ctx = self.cfg, self.ctx
+        mixer, ffn = p.desc
+        h = self._norm_lanes(x, p.norm1)
+        if mixer == "attn":
+            a = attention_lanes(
+                p.attn, h, positions, cfg, ctx, causal=causal,
+                caches=None if cache is None else _lane_dicts(cache["attn"]),
+                cache_index=cache_index,
+                kv_seq_sharded=self.long_context and not cfg.sliding_window)
+        else:
+            a = self._replicated_mixer(mixer, getattr(p, mixer), h, cache)
+        x = spmd.lanewise(torch.add, x, a)
+        if enc_out is not None:
+            h = self._norm_lanes(x, p.norm_x)
+            a = attention_lanes(p.xattn, h, positions, cfg, ctx,
+                                causal=False, cross_kv=enc_out)
+            x = spmd.lanewise(torch.add, x, a)
+        aux = spmd.lanewise(lambda t: torch.zeros(
+            (), dtype=torch.float32, device=t.device), x)
+        if ffn in ("ffn", "moe"):
+            h = self._norm_lanes(x, p.norm2)
+            if ffn == "ffn":
+                y = ffn_lanes(p.ffn, h, cfg.mlp_type, ctx)
+            else:
+                y, aux = moe_lanes(p.moe, h, cfg.moe, cfg.mlp_type, ctx)
+            x = spmd.lanewise(torch.add, x, y)
+        return x, aux
+
+    def _replicated_mixer(self, mixer: str, p, h, cache):
+        """Mamba, mLSTM or sLSTM on lanes, the stopgap (module docstring):
+        the weights gathered whole, the state's splits other than the
+        batch's gathered, the block's own function on each lane, and the
+        new state cut back to its layout."""
+        cfg, ctx, mesh = self.cfg, self.ctx, self.ctx.mesh
+        w = lane_weights(p, ctx, lambda name, spec: P(), label=STOPGAP)
+        dp = set(_axes_tuple(self._dp()))
+        state = None
+        if cache is not None:
+            state = {}
+            for k, t in cache[mixer].items():
+                parts = t.parts
+                for dim, e in enumerate(t.spec):
+                    if e is not None and not set(_axes_tuple(e)) <= dp:
+                        parts = spmd.all_gather(parts, e, dim, mesh,
+                                                label=STOPGAP)
+                state[k] = parts
+            state = _lane_dicts(state)
+
+        def run(wl, x, st):
+            if mixer == "mamba":
+                return mamba_apply(
+                    wl, x, cfg.mamba, DISABLED, state=st,
+                    chunk=x.shape[1] if self.unroll else 256,
+                    scan_dtype=self.ssm_dtype)
+            if mixer == "mlstm":
+                return mlstm_apply(wl, x, cfg.num_heads, cfg.xlstm,
+                                   DISABLED, state=st)
+            return slstm_apply(wl, x, cfg.num_heads, DISABLED, state=st)
+        a, st = spmd.lanewise(run, w, h, state)
+        if cache is not None:
+            cache[mixer] = {k: _cut(spmd.lanewise(lambda s: s[k], st), t)
+                            for k, t in cache[mixer].items()}
+        return a
+
+
+STOPGAP = "Mamba and xLSTM weights and states gathered over 'model'"
+
+
+def _lane_dicts(tree: dict) -> np.ndarray:
+    """{key: lanes array or ``spmd.Lanes``} -> a lanes array of dicts."""
+    parts = {k: (v.parts if isinstance(v, spmd.Lanes) else v)
+             for k, v in tree.items()}
+    shape = next(iter(parts.values())).shape
+    out = np.empty(shape, dtype=object)
+    for idx in np.ndindex(shape):
+        out[idx] = {k: v[idx] for k, v in parts.items()}
+    return out
+
+
+def _cut(full, like: spmd.Lanes) -> spmd.Lanes:
+    """Lanes holding a state whole on its non-batch dims -> cut to
+    ``like``'s layout, each lane's part a copy of its own."""
+    mesh = like.mesh
+    out = np.empty(full.shape, dtype=object)
+    for idx, pos in spmd._lanes(mesh):
+        t = full[idx]
+        for dim, e in enumerate(like.spec):
+            axes = _axes_tuple(e)
+            if not axes or dim == 0:
+                continue
+            n = math.prod(mesh.shape[a] for a in axes)
+            size = t.shape[dim] // n
+            t = t.narrow(dim, spmd._linear(pos, mesh, axes) * size, size)
+        out[idx] = t
+    return spmd.Lanes(spmd.own(out) if any(
+        e is not None for e in like.spec[1:]) else out, like.spec, mesh,
+        like.shape, like.dtype)
+
+
+class _Root:
+    """FSDP's root unit, the weights used outside the layer stack (the
+    embedding, the unembedding): gathered once a forward (``gather``)
+    and, for the backward, once more.  Under ``regather`` a saved tensor
+    that is (a view of) one of them is kept as a recipe, not a tensor;
+    the first one the backward unpacks gathers every root weight again
+    (``dist.spmd`` counts it), and the recipes read that."""
+
+    def __init__(self, ctx: ShardCtx, regather: bool):
+        self.ctx = ctx
+        self.regather = regather
+        self.gathered: dict = {}   # storage key -> (weight, target, idx)
+        self.weights: dict = {}    # id(weight) -> (weight, target)
+        self.again: dict | None = None
+
+    def __enter__(self):
+        if self.regather:
+            self._hooks = torch.autograd.graph.saved_tensors_hooks(
+                self._pack, self._unpack)
+            self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.regather:
+            self._hooks.__exit__(*exc)
+        return False
+
+    def gather(self, w, target):
+        key = (id(w), tuple(target))
+        if key in self.weights:
+            return self.weights[key][2]
+        parts = gather_to(w, target, self.ctx)
+        self.weights[key] = (w, target, parts)
+        if self.regather:
+            for idx in np.ndindex(parts.shape):
+                self.gathered[_storage(parts[idx])] = (key, idx)
+        return parts
+
+    def _pack(self, t):
+        hit = self.gathered.get(_storage(t))
+        if hit is None:
+            return t
+        return (hit, t.size(), t.stride(), t.storage_offset())
+
+    def _unpack(self, packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        (key, idx), size, stride, offset = packed
+        if self.again is None:
+            with torch.no_grad():
+                self.again = {k: gather_to(w, target, self.ctx)
+                              for k, (w, target, _) in self.weights.items()}
+        return self.again[key][idx].as_strided(size, stride, offset)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
 
 
 def build_model(cfg: ArchConfig, ctx: ShardCtx | None = None, *,

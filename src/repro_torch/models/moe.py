@@ -16,18 +16,26 @@ Three execution paths, as the reference's:
   * EP replicated — tokens already replicated over the expert axis: each
     lane gathers the slots of its own experts from its copy of x, and one
     float32 ``psum`` combines.
-The EP paths run lane by lane (``dist.spmd``).
+On a mesh every path runs lane by lane (``dist.spmd``, ``moe_lanes``) on
+the tokens of the lane's data shard and the expert weights the lane
+holds (``nn.ShardedParameter``): each weight's split other than the EP
+layout's (the FSDP split of 'embed') is all-gathered just before its
+GEMM, one weight at a time, and the router whole.  The local path on a
+mesh (the experts do not divide the EP axis) routes the tokens of every
+data shard, gathered, on every lane: the reference's capacity from the
+global T, its expert GEMMs repeated on each lane.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.dist import spmd
 from repro_torch.dist.context import DISABLED, P, ShardCtx
-from repro_torch.models.ffn import FFN, ffn_apply
-from repro_torch.models.nn import Init, gelu, silu
+from repro_torch.models.ffn import FFN, ffn_apply, ffn_lanes
+from repro_torch.models.nn import Init, gather_to, gelu, silu
 
 
 class MoE(nn.Module):
@@ -113,11 +121,33 @@ def capacity_of(moe: MoEConfig, tokens: int) -> int:
 
 def moe_apply(p: MoE, x, moe: MoEConfig, mlp_type: str,
               ctx: ShardCtx | None = None):
-    """x: [B, S, d] -> ([B, S, d], aux_loss)."""
+    """x: [B, S, d] -> ([B, S, d], aux_loss).  On an enabled ``ctx`` the
+    batch is split over the data axes and ``moe_lanes`` runs it."""
     ctx = ctx or DISABLED
     B, S, d = x.shape
+    if ctx.enabled:
+        dp = ctx.rules.get("batch")
+        y, aux = moe_lanes(p, spmd.shard(x, P(dp), ctx.mesh), moe, mlp_type,
+                           ctx)
+        return (spmd.unshard(y, P(dp), ctx.mesh),
+                spmd.unshard(aux, P(), ctx.mesh))
     T = B * S
     xf = x.reshape(T, d)
+    dispatch_idx, combine_w, aux = _route(p.router, xf, moe,
+                                          capacity_of(moe, T))
+    xe = _gather_slots(xf, dispatch_idx)                 # [E, C, d]
+    ye = _expert_ffn(xe, p.w_up, p.w_down, getattr(p, "w_gate", None),
+                     mlp_type)
+    y = _combine(ye, dispatch_idx, combine_w, T, x.dtype)
+    if hasattr(p, "shared"):
+        y = y + ffn_apply(p.shared, x, mlp_type, ctx).reshape(T, d)
+    return y.reshape(B, S, d), aux
+
+
+def moe_lanes(p: MoE, x, moe: MoEConfig, mlp_type: str, ctx: ShardCtx):
+    """The layer on lanes: ``x`` a lanes array [B_l, S, d] split over the
+    batch axes -> (y lanes, whole over 'model'; aux lanes, the same on
+    every lane)."""
     ep = ctx.axis_size("experts")
     # EP needs the expert count to divide the mesh axis (kimi 384, jamba
     # 16); otherwise TP-MoE: the local path (mixtral's 8 experts on a
@@ -130,21 +160,17 @@ def moe_apply(p: MoE, x, moe: MoEConfig, mlp_type: str,
     dp = ctx.rules.get("batch") or ()
     dp_flat = (dp,) if isinstance(dp, str) else tuple(dp)
     replicated_ok = ep_axis not in dp_flat
-
+    xf = spmd.lanewise(lambda t: t.reshape(-1, t.shape[-1]), x)
     if use_ep and ctx.ep_mode == "replicated" and replicated_ok:
         y, aux = _moe_ep_replicated(p, xf, moe, mlp_type, ctx)
     elif use_ep:
         y, aux = _moe_ep(p, xf, moe, mlp_type, ctx)
     else:
-        dispatch_idx, combine_w, aux = _route(p.router, xf, moe,
-                                              capacity_of(moe, T))
-        xe = _gather_slots(xf, dispatch_idx)                 # [E, C, d]
-        ye = _expert_ffn(xe, p.w_up, p.w_down, getattr(p, "w_gate", None),
-                         mlp_type)
-        y = _combine(ye, dispatch_idx, combine_w, T, x.dtype)
+        y, aux = _moe_local_lanes(p, xf, moe, mlp_type, ctx)
     if hasattr(p, "shared"):
-        y = y + ffn_apply(p.shared, x, mlp_type, ctx).reshape(T, d)
-    return y.reshape(B, S, d), aux
+        y = spmd.lanewise(lambda a, b: a + b.reshape(a.shape), y,
+                          ffn_lanes(p.shared, x, mlp_type, ctx))
+    return spmd.lanewise(lambda t, xl: t.reshape(xl.shape), y, x), aux
 
 
 def _combine(ye, dispatch_idx, combine_w, T: int, dtype):
@@ -157,28 +183,33 @@ def _combine(ye, dispatch_idx, combine_w, T: int, dtype):
     return y[:T].to(dtype)
 
 
-def _ep_inputs(p: MoE, xf, moe: MoEConfig, ctx: ShardCtx, w_up_spec,
-               w_dn_spec):
-    """The per-lane tokens (split over the batch rule), router and expert
-    weights, and the capacity of one data shard's tokens."""
-    mesh = ctx.mesh
-    dp = ctx.rules.get("batch")
-    T_local = xf.shape[0] // max(ctx.axis_size("batch"), 1)
-    wg = getattr(p, "w_gate", None)
-    return (spmd.shard(xf, P(dp), mesh), spmd.shard(p.router, P(), mesh),
-            None if wg is None else spmd.shard(wg, w_up_spec, mesh),
-            spmd.shard(p.w_up, w_up_spec, mesh),
-            spmd.shard(p.w_down, w_dn_spec, mesh),
-            capacity_of(moe, T_local))
+def _expert_ffn_lanes(xe, p: MoE, mlp_type: str, ctx: ShardCtx, up_spec,
+                      dn_spec):
+    """``_expert_ffn`` on lanes, each expert weight laid out by its spec
+    (``gather_to``) just before its GEMM and dropped after it, so one
+    gathered weight is alive at a time."""
+    def bmm(t, w, spec):
+        return spmd.lanewise(torch.bmm, t, gather_to(w, spec, ctx))
+    if mlp_type in ("swiglu", "geglu"):
+        gate = bmm(xe, p.w_gate, up_spec)
+        up = bmm(xe, p.w_up, up_spec)
+        h = spmd.lanewise(lambda g, u: (silu(g) if mlp_type == "swiglu"
+                                        else gelu(g)) * u, gate, up)
+        del gate, up
+    else:
+        h = spmd.lanewise(gelu, bmm(xe, p.w_up, up_spec))
+    return bmm(h, p.w_down, dn_spec)
 
 
-def _ep_outputs(y, aux, ctx: ShardCtx):
-    """``aux`` averaged over the data axes; y and aux off the lanes."""
-    mesh = ctx.mesh
+def _ep_capacity(xf, moe: MoEConfig) -> int:
+    """The capacity of one data shard's tokens."""
+    return capacity_of(moe, xf.flat[0].shape[0])
+
+
+def _ep_aux(aux, ctx: ShardCtx):
+    """``aux`` averaged over the data axes."""
     dp = ctx.rules.get("batch")
-    if dp is not None:
-        aux = spmd.pmean(aux, dp, mesh)
-    return spmd.unshard(y, P(dp), mesh), spmd.unshard(aux, P(), mesh)
+    return aux if dp is None else spmd.pmean(aux, dp, ctx.mesh)
 
 
 def _moe_ep(p: MoE, xf, moe: MoEConfig, mlp_type: str, ctx: ShardCtx):
@@ -195,25 +226,25 @@ def _moe_ep(p: MoE, xf, moe: MoEConfig, mlp_type: str, ctx: ShardCtx):
     axis = ctx.rules.get("experts")
     ff_axis = ctx.weight_rules.get("expert_ff")
     ff_axis = ff_axis if isinstance(ff_axis, str) and ff_axis != axis else None
-    xs, router, wg, wu, wd, cap = _ep_inputs(
-        p, xf, moe, ctx, P(axis, None, ff_axis), P(axis, ff_axis, None))
+    router = gather_to(p.router, P(), ctx)
+    cap = _ep_capacity(xf, moe)
 
     def route(x_b, r):
         di, cw, aux = _route(r, x_b, moe, cap)
         return di, cw, aux, _gather_slots(x_b, di)
 
-    di, cw, aux, xe = spmd.lanewise(route, xs, router)
+    di, cw, aux, xe = spmd.lanewise(route, xf, router)
+    del router
     xe = spmd.all_to_all(xe, axis, 0, 1, mesh)
-    ye = spmd.lanewise(
-        lambda e, u, dn, g: _expert_ffn(e, u, dn, g, mlp_type),
-        xe, wu, wd, wg)
+    ye = _expert_ffn_lanes(xe, p, mlp_type, ctx, P(axis, None, ff_axis),
+                           P(axis, ff_axis, None))
     if ff_axis is not None:  # the down projection contracted a split dim
         ye = spmd.psum(ye, ff_axis, mesh)
     ye = spmd.all_to_all(ye, axis, 1, 0, mesh)
     y = spmd.lanewise(
         lambda e, i, w, x_b: _combine(e, i, w, x_b.shape[0], x_b.dtype),
-        ye, di, cw, xs)
-    return _ep_outputs(y, aux, ctx)
+        ye, di, cw, xf)
+    return y, _ep_aux(aux, ctx)
 
 
 def _moe_ep_replicated(p: MoE, xf, moe: MoEConfig, mlp_type: str,
@@ -226,18 +257,46 @@ def _moe_ep_replicated(p: MoE, xf, moe: MoEConfig, mlp_type: str,
     mesh = ctx.mesh
     axis = ctx.rules.get("experts")
     E_local = moe.num_experts // ctx.axis_size("experts")
-    xs, router, wg, wu, wd, cap = _ep_inputs(p, xf, moe, ctx, P(axis),
-                                             P(axis))
+    router = gather_to(p.router, P(), ctx)
+    cap = _ep_capacity(xf, moe)
 
-    def local(x_b, r, g, u, dn, me):
+    def route(x_b, r, me):
         di, cw, aux = _route(r, x_b, moe, cap)  # the full dispatch, local
         sl = int(me) * E_local
         di_loc, cw_loc = di[sl:sl + E_local], cw[sl:sl + E_local]
-        ye = _expert_ffn(_gather_slots(x_b, di_loc), u, dn, g, mlp_type)
-        return _combine(ye, di_loc, cw_loc, x_b.shape[0], torch.float32), aux
+        return di_loc, cw_loc, aux, _gather_slots(x_b, di_loc)
 
-    y_part, aux = spmd.lanewise(local, xs, router, wg, wu, wd,
-                                spmd.axis_index(mesh, axis))
+    di, cw, aux, xe = spmd.lanewise(route, xf, router,
+                                    spmd.axis_index(mesh, axis))
+    del router
+    ye = _expert_ffn_lanes(xe, p, mlp_type, ctx, P(axis), P(axis))
+    y_part = spmd.lanewise(
+        lambda e, i, w, x_b: _combine(e, i, w, x_b.shape[0], torch.float32),
+        ye, di, cw, xf)
     y = spmd.lanewise(lambda t, x_b: t.to(x_b.dtype),
-                      spmd.psum(y_part, axis, mesh), xs)
-    return _ep_outputs(y, aux, ctx)
+                      spmd.psum(y_part, axis, mesh), xf)
+    return y, _ep_aux(aux, ctx)
+
+
+def _moe_local_lanes(p: MoE, xf, moe: MoEConfig, mlp_type: str,
+                     ctx: ShardCtx):
+    """The local path on a mesh (module docstring): every data shard's
+    tokens gathered on every lane and routed with the global capacity,
+    every expert's GEMMs on every lane, and each lane's own rows of y."""
+    mesh = ctx.mesh
+    dp = ctx.rules.get("batch")
+    xa = (xf if dp is None else
+          spmd.all_gather(xf, dp, 0, mesh, label="MoE local path tokens"))
+    T, T_local = xa.flat[0].shape[0], xf.flat[0].shape[0]
+    router = gather_to(p.router, P(), ctx)
+    di, cw, aux = spmd.lanewise(
+        lambda x_b, r: _route(r, x_b, moe, capacity_of(moe, T)), xa, router)
+    del router
+    xe = spmd.lanewise(_gather_slots, xa, di)
+    ye = _expert_ffn_lanes(xe, p, mlp_type, ctx, P(), P())
+    y = spmd.lanewise(
+        lambda e, i, w, x_b: _combine(e, i, w, T, x_b.dtype), ye, di, cw, xf)
+    b = (spmd.axis_index(mesh, dp) if dp is not None
+         else np.zeros(mesh.devices.shape, dtype=np.int64))
+    return spmd.lanewise(lambda t, k: t.narrow(0, int(k) * T_local, T_local),
+                         y, b), aux

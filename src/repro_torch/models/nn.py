@@ -8,6 +8,22 @@ parameter carries the reference's logical axes as ``param.axes``.  On
 the ``meta`` device it allocates nothing, which is how ``param_count``
 counts a full-size model.
 
+On an enabled ``ShardCtx`` a weight is resident lane by lane: ``Init``
+makes it whole on the mesh's first lane (the same values as without a
+mesh, from the same seed), cuts it by ``ctx.param_sharding`` and copies
+each lane's piece to that lane's device into storage of its own; the
+whole is then freed.  The weight is a ``ShardedParameter``: a module
+whose ``pieces`` (one ``nn.Parameter`` a lane, row-major over the mesh)
+are what the optimizer updates, and which carries the global ``shape``,
+``dtype``, ``axes`` and the ``sharding``, so the reference's leaf is
+still seen whole (``models.convert.Leaf``).  A module, not a parameter
+list beside the weight: it sits where the parameter sat, under the same
+name, so the state-dict path of a piece is the weight's path plus
+``pieces.<lane>``, and ``named_weights`` walks a model's weights the same
+way with a mesh or without.  ``lane_weights`` hands a block's weights to
+its lanes, all-gathering the dims a layer needs whole (the FSDP split of
+'embed' over the data axes).
+
 The numerics follow the reference exactly where torch's defaults differ:
 ``gelu`` is the tanh approximation (``jax.nn.gelu``'s default), the layer
 norm's variance is the population variance, and both norms compute in
@@ -20,9 +36,15 @@ gives the reference's bits, where torch's fused ``F.gelu``/``F.silu``/
 from __future__ import annotations
 
 import math
+import types
 
+import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.dist import spmd
+from repro_torch.dist.context import (DISABLED, NamedSharding, P, ShardCtx,
+                                      _axes_tuple, spec_axes)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -56,22 +78,146 @@ def softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-class Init:
-    """Makes parameters on ``device`` from a generator seeded by ``seed``."""
+class ShardedParameter(nn.Module):
+    """A weight resident lane by lane (module docstring): ``pieces[i]``
+    is lane ``i``'s (row-major over ``sharding.mesh``), of
+    ``sharding.shard_shape(shape)``."""
 
-    def __init__(self, device: torch.device, seed: int = 0):
+    def __init__(self, pieces: np.ndarray, sharding: NamedSharding, shape,
+                 dtype: torch.dtype, axes):
+        super().__init__()
+        self.pieces = nn.ParameterList(list(pieces.flat))
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.axes = tuple(axes)
+
+    @property
+    def spec(self) -> P:
+        return self.sharding.spec
+
+    @property
+    def mesh(self):
+        return self.sharding.mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.pieces[0].device
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def lanes(self, values=None) -> np.ndarray:
+        """The pieces (or ``values``, one a lane) as a lanes array."""
+        out = np.empty(self.mesh.devices.shape, dtype=object)
+        flat = out.reshape(-1)
+        for i, t in enumerate(self.pieces if values is None else values):
+            flat[i] = t
+        return out
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole weight (detached), on ``device`` (the first lane's)."""
+        return spmd.unshard(self.lanes([t.detach() for t in self.pieces]),
+                            self.spec, self.mesh, device)
+
+    @property
+    def grad(self) -> torch.Tensor | None:
+        """The whole gradient of the weight, or None before any: each
+        piece's, summed over the lanes that hold the same piece (the
+        gradient all-reduce ``train_step.stacked_grads`` runs)."""
+        if all(t.grad is None for t in self.pieces):
+            return None
+        g = self.lanes([torch.zeros_like(t) if t.grad is None else t.grad
+                        for t in self.pieces])
+        used = spec_axes(self.spec)
+        rest = tuple(a for a in self.mesh.axis_names if a not in used)
+        if rest:
+            g = spmd._reduce(g, rest, self.mesh, torch.add)
+        return spmd.unshard(g, self.spec, self.mesh)
+
+    def extra_repr(self) -> str:
+        return f"{tuple(self.shape)}, {self.dtype}, {self.spec}"
+
+
+def named_weights(module: nn.Module, prefix: str = ""):
+    """(dotted name, weight) of every weight under ``module``, in
+    registration order: an ``nn.Parameter``, or a ``ShardedParameter``
+    whose pieces are not listed apart."""
+    for name, p in module._parameters.items():
+        if p is not None:
+            yield prefix + name, p
+    for name, child in module._modules.items():
+        if isinstance(child, ShardedParameter):
+            yield prefix + name, child
+        elif child is not None:
+            yield from named_weights(child, f"{prefix}{name}.")
+
+
+def whole(t) -> torch.Tensor:
+    """A weight's (or a ``spmd.Lanes``') whole value, detached."""
+    if isinstance(t, (ShardedParameter, spmd.Lanes)):
+        return t.full()
+    return t.detach()
+
+
+@torch.no_grad()
+def assign(t, value: torch.Tensor) -> None:
+    """Copy the whole ``value`` into a weight or a ``spmd.Lanes`` (each
+    lane its part), cast to its dtype."""
+    if not isinstance(t, (ShardedParameter, spmd.Lanes)):
+        t.copy_(value)
+        return
+    parts = t.pieces if isinstance(t, ShardedParameter) else t.parts.flat
+    for part, v in zip(parts, spmd.shard(value, t.spec, t.mesh).flat):
+        part.copy_(v)
+
+
+class Init:
+    """Makes parameters on ``device`` from a generator seeded by ``seed``;
+    on an enabled ``ctx``, resident lane by lane (the module docstring),
+    ``device`` then being where each weight is made whole (``meta``:
+    every piece on ``meta``, nothing allocated)."""
+
+    def __init__(self, device: torch.device, seed: int = 0,
+                 ctx: ShardCtx | None = None):
         self.device = device
+        self.ctx = ctx or DISABLED
         self.generator = (None if device.type == "meta"
                           else torch.Generator(device).manual_seed(seed))
 
-    def _param(self, shape, dtype, axes, fill) -> nn.Parameter:
+    def _param(self, shape, dtype, axes, fill):
+        axes = tuple(axes)
+        if self.ctx.enabled:
+            return self._sharded(shape, dtype, axes, fill)
         if self.generator is None:
             p = nn.Parameter(torch.empty(shape, dtype=dtype,
                                          device=self.device))
         else:
             p = nn.Parameter(fill().to(dtype))
-        p.axes = tuple(axes)  # logical axes (dist.context.ShardCtx)
+        p.axes = axes  # logical axes (dist.context.ShardCtx)
         return p
+
+    def _sharded(self, shape, dtype, axes, fill) -> ShardedParameter:
+        sh = self.ctx.param_sharding(types.SimpleNamespace(
+            shape=tuple(shape), axes=axes))
+        mesh = sh.mesh
+        pieces = np.empty(mesh.devices.shape, dtype=object)
+        if self.generator is None:
+            local = sh.shard_shape(shape)
+            for idx in np.ndindex(pieces.shape):
+                pieces[idx] = nn.Parameter(torch.empty(
+                    local, dtype=dtype, device="meta"))
+        else:
+            # cut the float32 draw and cast each piece as it is copied
+            # (the cast is elementwise: the same values as casting the
+            # whole first), so no whole copy in ``dtype`` is ever made
+            parts = spmd.own(spmd.shard(fill(), sh.spec, mesh), dtype)
+            for idx in np.ndindex(pieces.shape):
+                pieces[idx] = nn.Parameter(parts[idx])
+        return ShardedParameter(pieces, sh, shape, dtype, axes)
 
     def dense(self, shape: tuple[int, ...], dtype, axes: Axes,
               scale: float | None = None) -> nn.Parameter:
@@ -129,3 +275,78 @@ def apply_norm(x, p: Norm, norm_type: str):
     if norm_type == "layernorm":
         return layer_norm(x, p.gamma, p.beta)
     return rms_norm(x, p.gamma)
+
+
+# --------------------------------------------------------------------------
+# a block's weights on its lanes
+# --------------------------------------------------------------------------
+def dense_spec(spec: P, ctx: ShardCtx) -> P:
+    """What a dense layer computes on: ``spec`` with every split over the
+    FSDP axes (``weight_rules["embed"]``) gathered, the tensor-parallel
+    splits kept."""
+    fsdp = set(_axes_tuple(ctx.weight_rules.get("embed")))
+    return P(*(None if set(_axes_tuple(e)) & fsdp else e for e in spec))
+
+
+TP_GATHER = "weights gathered over their tensor-parallel split"
+
+
+def gather_to(w, target: P, ctx: ShardCtx, *,
+              label: str = TP_GATHER) -> np.ndarray:
+    """A weight's lanes array laid out by ``target``: a
+    ``ShardedParameter``'s pieces with every dim whose split differs
+    all-gathered (``spmd.all_gather``, whose backward reduce-scatters the
+    gradient into the pieces), a whole parameter split by ``target``
+    (views).  A gather over the FSDP axes is the one every FSDP leaf
+    runs; any other (a tensor-parallel split the layer needs whole)
+    carries ``label`` in the collective counts."""
+    mesh = ctx.mesh
+    if not isinstance(w, ShardedParameter):
+        return spmd.shard(w, target, mesh)
+    fsdp = set(_axes_tuple(ctx.weight_rules.get("embed")))
+    parts = w.lanes()
+    spec = tuple(w.spec) + (None,) * (w.dim() - len(w.spec))
+    target = tuple(target) + (None,) * (w.dim() - len(target))
+    todo = []
+    for dim, (have, want) in enumerate(zip(spec, target)):
+        if _axes_tuple(have) == _axes_tuple(want):
+            continue
+        if want is not None:
+            raise ValueError(f"gather_to: dim {dim} of {w} is split over "
+                             f"{have}, wanted over {want}")
+        todo.append((not set(_axes_tuple(have)) <= fsdp, dim, have))
+    # the FSDP gathers first: their result is what every FSDP leaf moves
+    for tp_split, dim, have in sorted(todo):
+        parts = spmd.all_gather(parts, have, dim, mesh,
+                                label=label if tp_split else None)
+    return parts
+
+
+def spec_of(w, ctx: ShardCtx) -> P:
+    """A weight's spec: its pieces' (sharded), else the rules'."""
+    if isinstance(w, ShardedParameter):
+        return w.spec
+    return ctx.param_sharding(w).spec
+
+
+def lane_weights(module: nn.Module, ctx: ShardCtx, target=None, *,
+                 names=None, label: str = TP_GATHER) -> np.ndarray:
+    """A lanes array of ``SimpleNamespace``s, one a lane, holding
+    ``module``'s own weights (not its submodules') as that lane computes
+    on them: ``target(name, spec) -> spec`` (default ``dense_spec``)."""
+    target = target or (lambda name, spec: dense_spec(spec, ctx))
+    weights = {name: w for name, w in named_weights(module)
+               if "." not in name and (names is None or name in names)}
+    lanes = {name: gather_to(w, target(name, spec_of(w, ctx)), ctx,
+                             label=label)
+             for name, w in weights.items()}
+    out = np.empty(ctx.mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(out.shape):
+        out[idx] = types.SimpleNamespace(
+            **{name: parts[idx] for name, parts in lanes.items()})
+    return out
+
+
+def split_over_model(spec: P, dim: int) -> bool:
+    """Whether ``spec`` splits ``dim`` over the 'model' axis."""
+    return dim < len(spec) and "model" in _axes_tuple(spec[dim])

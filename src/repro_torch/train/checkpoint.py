@@ -9,9 +9,12 @@ file format.
     stepping (emergency saves on SIGTERM flush synchronously, after a
     pending save); ``close`` finishes it and stops the thread;
   * restore copies into an existing state's tensors, on whatever device
-    its model lives; with ``shardings`` (elastic re-sharding) it also
-    splits each full array over the lanes of its mesh by its spec, which
-    need not be the mesh it was saved from.
+    its model lives, and a mesh state's (``nn.ShardedParameter``s and
+    ``spmd.Lanes``) split by their own layout over the lanes of their
+    mesh, which need not be the mesh the file was saved from; with
+    ``shardings`` (elastic re-sharding) it also splits each full array of
+    a nested dict over the lanes of its mesh by its spec.  A save writes
+    every leaf whole, the file an unsharded run writes.
 
 The npz holds what the reference's ``CheckpointManager`` writes for the
 same state: its leaf names, its stacked shapes, its dtypes (bf16 stored
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.dist import spmd
 from repro_torch.models.convert import to_numpy, to_tensor
+from repro_torch.models.nn import ShardedParameter, assign, whole
 from repro_torch.train.train_step import TrainState
 
 
@@ -76,9 +80,10 @@ def _flatten_named(state) -> dict[str, np.ndarray]:
     """Host copies of every leaf (taken now: the tensors keep changing)."""
     flat = {}
     for name, (parts, stacked) in _entries(state).items():
-        if isinstance(parts[0], torch.Tensor):
-            arr = to_numpy(torch.stack([t.detach() for t in parts])
-                           if stacked else parts[0])
+        if isinstance(parts[0], (torch.Tensor, ShardedParameter,
+                                 spmd.Lanes)):
+            arr = to_numpy(torch.stack([whole(t) for t in parts])
+                           if stacked else whole(parts[0]))
         else:
             arr = np.array(parts[0])
             if arr.dtype.name == "bfloat16":
@@ -176,7 +181,7 @@ class CheckpointManager:
                         raise ValueError(f"{name}: checkpoint "
                                          f"{tuple(v.shape)}, state "
                                          f"{tuple(t.shape)}")
-                    t.copy_(v)
+                    assign(t, v)
         if shardings is None:
             return state, step
         return _split(state, shardings), step

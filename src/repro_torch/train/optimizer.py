@@ -14,14 +14,27 @@ Each leaf's gradients arrive stacked (``Leaf.stack``); the new values are
 written into the model's parameters in place (``Leaf.write``).  The
 schedule and the bias corrections are float32 tensors, as in the
 reference, so no step rounds in float64.
+
+On a mesh (a leaf of ``nn.ShardedParameter``s) the state is resident as
+the parameters are: each of ``m``, ``v``, ``master``, ``vr``, ``vc`` an
+``spmd.Lanes`` of the lane's shard of the stacked leaf.  AdamW is
+elementwise on each shard.  What spans a leaf becomes a reduction over
+the lanes that split it: the global norm sums each leaf's ``psum`` of
+the lanes' sums of squares, in leaf order; Adafactor's row and column
+means ``psum`` over the axes that split the reduced dim, and its RMS clip
+over every axis that splits the leaf.  A shard held by several lanes is
+updated the same way on each.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.dist import spmd
+from repro_torch.dist.context import NamedSharding, P, _axes_tuple, spec_axes
 from repro_torch.models.convert import Leaf
 
 
@@ -64,33 +77,71 @@ def init_opt_state(leaves: list[Leaf], cfg: OptConfig) -> dict:
     "master"} or {"vr", "vc" or "v", "master"}}}, float32 tensors of the
     reference's stacked shapes on the leaves' device."""
     dev = leaves[0].tensors[0].device
-
-    def zeros(shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
     ema = {}
     for leaf in leaves:
         sh = leaf.shape
+        spec = leaf.spec if leaf.sharded else None
+        zeros = (_lane_zeros(leaf) if leaf.sharded else
+                 lambda shape, spec: torch.zeros(shape, dtype=torch.float32,
+                                                 device=dev))
         if cfg.name == "adamw":
-            st = {"m": zeros(sh), "v": zeros(sh)}
+            st = {"m": zeros(sh, spec), "v": zeros(sh, spec)}
         elif _factored(sh, cfg.factored_min_dim):
-            st = {"vr": zeros(sh[:-1]), "vc": zeros(sh[:-2] + sh[-1:])}
+            st = {"vr": zeros(sh[:-1], spec and P(*spec[:-1])),
+                  "vc": zeros(sh[:-2] + sh[-1:],
+                              spec and P(*spec[:-2], spec[-1]))}
         else:
-            st = {"v": zeros(sh)}
+            st = {"v": zeros(sh, spec)}
         if cfg.master_fp32 and leaf.dtype != torch.float32:
-            st["master"] = leaf.stack().to(torch.float32)
+            st["master"] = (
+                spmd.Lanes(spmd.lanewise(lambda t: t.to(torch.float32),
+                                         leaf.lanes()), spec,
+                           leaf.tensors[0].mesh, sh, torch.float32)
+                if leaf.sharded else leaf.stack().to(torch.float32))
         ema[leaf.path] = st
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "ema": ema}
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float):
+def _lane_zeros(leaf: Leaf):
+    mesh = leaf.tensors[0].mesh
+
+    def zeros(shape, spec):
+        local = NamedSharding(mesh, spec).shard_shape(shape)
+        parts = np.empty(mesh.devices.shape, dtype=object)
+        for idx in np.ndindex(parts.shape):
+            parts[idx] = torch.zeros(local, dtype=torch.float32,
+                                     device=mesh.devices[idx]
+                                     if leaf.tensors[0].device.type != "meta"
+                                     else "meta")
+        return spmd.Lanes(parts, spec, mesh, shape, torch.float32)
+    return zeros
+
+
+def _lane_sum(parts, axes, mesh):
+    """Each lane's local sum, summed over the lanes that split it."""
+    return spmd.psum(parts, axes, mesh) if axes else parts
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
     """-> (scale, gnorm): the global norm of ``grads`` (each leaf's sum of
     squares in float32, summed in leaf order) and the clip factor
     ``min(1, max_norm / gnorm)``.  ``apply_updates`` scales each leaf as
     the reference does (``g.float() * scale``) when it comes to it, so
-    no float32 copy of every gradient is held at once."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in grads))
+    no float32 copy of every gradient is held at once.  A gradient on a
+    mesh (``spmd.Lanes``) adds its lanes' sums over the axes that split
+    it; the result is the first lane's (every lane holds it)."""
+    def sumsq(g):
+        if not isinstance(g, spmd.Lanes):
+            return torch.sum(torch.square(g.to(torch.float32)))
+        ss = spmd.lanewise(lambda t: torch.sum(torch.square(
+            t.to(torch.float32))), g.parts)
+        return _lane_sum(ss, spec_axes(g.spec), g.mesh).flat[0]
+    total = None
+    for g in grads:
+        s = sumsq(g)
+        total = s if total is None else total + s.to(total.device)
+    gnorm = torch.sqrt(total)
     # a true division: ``float / tensor`` would be a reciprocal, then a
     # product (two roundings)
     limit = torch.full_like(gnorm, max_norm)
@@ -135,19 +186,87 @@ def _adafactor(gf, st: dict, master, cfg: OptConfig, lr):
     return master.sub_(lr * (upd + cfg.weight_decay * master))
 
 
+def _adafactor_lanes(g: spmd.Lanes, st: dict, master: spmd.Lanes,
+                     cfg: OptConfig, lr, scale):
+    """``_adafactor`` on a sharded leaf: the means over a dim split over
+    lanes add the lanes' local sums (``psum`` over its axes) before the
+    division by its global size."""
+    mesh, spec, shape = g.mesh, tuple(g.spec), g.shape
+    spec += (None,) * (len(shape) - len(spec))
+    b2 = cfg.b2
+
+    def mean(parts, dim, axes_of, n):
+        local = spmd.lanewise(
+            lambda t: t.sum(dim=dim) if isinstance(dim, int) else t.sum(),
+            parts)
+        return spmd.lanewise(lambda t: t / n,
+                             _lane_sum(local, axes_of, mesh))
+    gf = spmd.lanewise(lambda t: t.to(torch.float32) * scale.to(t.device),
+                       g.parts)
+    g2 = spmd.lanewise(lambda t: torch.square(t) + 1e-30, gf)
+    if "vr" in st:
+        row = mean(g2, -1, _axes_tuple(spec[-1]), shape[-1])
+        col = mean(g2, -2, _axes_tuple(spec[-2]), shape[-2])
+        spmd.lanewise(lambda v, r: v.mul_(b2).add_((1 - b2) * r),
+                      st["vr"].parts, row)
+        spmd.lanewise(lambda v, c: v.mul_(b2).add_((1 - b2) * c),
+                      st["vc"].parts, col)
+        vr_mean = mean(st["vr"].parts, -1, _axes_tuple(spec[-2]),
+                       shape[-2])
+        upd = spmd.lanewise(
+            lambda t, vr, vc, vm: t * torch.rsqrt(
+                (vr / torch.clamp_min(vm[..., None], 1e-30))[..., None]
+                * vc[..., None, :] + 1e-30),
+            gf, st["vr"].parts, st["vc"].parts, vr_mean)
+    else:
+        spmd.lanewise(lambda v, t: v.mul_(b2).add_((1 - b2) * t),
+                      st["v"].parts, g2)
+        upd = spmd.lanewise(lambda t, v: t * torch.rsqrt(v + 1e-30), gf,
+                            st["v"].parts)
+    del gf, g2
+    ms = mean(spmd.lanewise(torch.square, upd), None, spec_axes(spec),
+              math.prod(shape))
+    return spmd.lanewise(
+        lambda u, m, w: w.sub_(lr.to(w.device) * (
+            u / torch.clamp_min(torch.sqrt(m + 1e-30), 1.0)
+            + cfg.weight_decay * w)), upd, ms, master)
+
+
+def _update_lanes(leaf: Leaf, g: spmd.Lanes, st: dict, cfg: OptConfig, lr,
+                  stepf, scale):
+    """One sharded leaf's update, lane by lane; writes the pieces."""
+    mesh, spec = g.mesh, leaf.spec
+    master = (st["master"] if "master" in st else spmd.Lanes(
+        spmd.lanewise(lambda t: t.to(torch.float32, copy=True),
+                      leaf.lanes()), spec, mesh, leaf.shape, torch.float32))
+    if cfg.name == "adamw":
+        new = spmd.lanewise(
+            lambda t, m, v, w: _adam(
+                t.to(torch.float32) * scale.to(t.device), {"m": m, "v": v},
+                w, cfg, lr.to(t.device), stepf.to(t.device)),
+            g.parts, st["m"].parts, st["v"].parts, master.parts)
+    else:
+        new = _adafactor_lanes(g, st, master.parts, cfg, lr, scale)
+    leaf.write_lanes(new)
+
+
 @torch.no_grad()
-def apply_updates(leaves: list[Leaf], grads: list[torch.Tensor],
-                  state: dict, cfg: OptConfig):
+def apply_updates(leaves: list[Leaf], grads: list, state: dict,
+                  cfg: OptConfig):
     """One optimizer step: ``grads`` (one stacked tensor per leaf, in
-    ``leaves``' order) clipped by their global norm, then AdamW or
-    Adafactor.  Writes the new values into the leaves' parameters and
-    updates ``state`` in place; -> (state, {"lr", "grad_norm"})."""
+    ``leaves``' order; on a mesh an ``spmd.Lanes`` of each lane's
+    shard) clipped by their global norm, then AdamW or Adafactor.
+    Writes the new values into the leaves' parameters and updates
+    ``state`` in place; -> (state, {"lr", "grad_norm"})."""
     step = state["step"].add_(1)
     lr = lr_at(cfg, step)
     stepf = step.to(torch.float32)
     scale, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     for leaf, g in zip(leaves, grads):
         st = state["ema"][leaf.path]
+        if isinstance(g, spmd.Lanes):
+            _update_lanes(leaf, g, st, cfg, lr, stepf, scale)
+            continue
         gf = g.to(torch.float32) * scale
         master = st["master"] if "master" in st else \
             leaf.stack().to(torch.float32, copy=True)

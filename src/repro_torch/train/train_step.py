@@ -9,6 +9,12 @@ as the reference's), and calls ``apply_updates``, which writes the new
 values into the model's parameters in place.  The step updates the
 ``TrainState`` in place too and returns it, so a state stays bound to its
 model (the reference returns a new state).
+
+On a mesh each leaf's gradient is an ``spmd.Lanes`` of the lanes'
+stacked shards: a piece's own gradient (the FSDP gathers' backward has
+reduce-scattered it over the data axes), summed by a ``psum`` over the
+axes the leaf is replicated on (the gradient all-reduce); the int8
+scale is a ``pmax`` over the axes that split the leaf.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import spmd
+from repro_torch.dist.context import spec_axes
 from repro_torch.models.convert import Leaf, reference_leaves
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import (OptConfig, apply_updates,
@@ -41,11 +49,35 @@ def dequantize_int8(q, scale):
     return q.to(torch.float32) * scale
 
 
-def ef_compress_grads(grads: list[torch.Tensor], ef: list[torch.Tensor]):
+def _ef_lanes(g: spmd.Lanes, e: spmd.Lanes):
+    """``ef_compress_grads`` of one sharded leaf: the scale's maximum
+    over the lanes that split it."""
+    gf = spmd.lanewise(lambda a, b: a.to(torch.float32) + b, g.parts, e.parts)
+    axes = spec_axes(g.spec)
+    top = spmd.lanewise(lambda t: torch.amax(torch.abs(t)), gf)
+    if axes:
+        top = spmd.pmax(top, axes, g.mesh)
+
+    def one(t, m, like):
+        scale = m / 127.0 + 1e-30
+        q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
+        deq = dequantize_int8(q, scale)
+        return deq.to(like.dtype), t - deq
+    deq, err = spmd.lanewise(one, gf, top, g.parts)
+    return (spmd.Lanes(deq, g.spec, g.mesh, g.shape, g.dtype),
+            spmd.Lanes(err, e.spec, e.mesh, e.shape, e.dtype))
+
+
+def ef_compress_grads(grads: list, ef: list):
     """Error-feedback int8 over stacked leaves: g' = deq(quant(g + e)),
     e' = (g + e) - g'.  -> (grads, ef) as new lists."""
     new_g, new_e = [], []
     for g, e in zip(grads, ef):
+        if isinstance(g, spmd.Lanes):
+            dg, de = _ef_lanes(g, e)
+            new_g.append(dg)
+            new_e.append(de)
+            continue
         gf = g.to(torch.float32) + e
         q, s = quantize_int8(gf)
         deq = dequantize_int8(q, s)
@@ -55,9 +87,18 @@ def ef_compress_grads(grads: list[torch.Tensor], ef: list[torch.Tensor]):
 
 
 def init_ef(leaves: list[Leaf]) -> dict:
-    return {leaf.path: torch.zeros(leaf.shape, dtype=torch.float32,
-                                   device=leaf.tensors[0].device)
-            for leaf in leaves}
+    out = {}
+    for leaf in leaves:
+        if leaf.sharded:
+            out[leaf.path] = spmd.Lanes(
+                spmd.lanewise(lambda t: torch.zeros(
+                    t.shape, dtype=torch.float32, device=t.device),
+                    leaf.lanes()), leaf.spec, leaf.tensors[0].mesh,
+                leaf.shape, torch.float32)
+        else:
+            out[leaf.path] = torch.zeros(leaf.shape, dtype=torch.float32,
+                                         device=leaf.tensors[0].device)
+    return out
 
 
 # ---- step factory ----------------------------------------------------------
@@ -82,12 +123,39 @@ def stacked_grads(leaves: list[Leaf]) -> list[torch.Tensor]:
     did not reach)."""
     out = []
     for leaf in leaves:
+        if leaf.sharded:
+            out.append(_lane_grads(leaf))
+            continue
         parts = [torch.zeros_like(t) if t.grad is None else t.grad
                  for t in leaf.tensors]
         out.append(leaf.stack(parts))
         for t in leaf.tensors:
             t.grad = None
     return out
+
+
+def _lane_grads(leaf: Leaf) -> spmd.Lanes:
+    """A sharded leaf's gradient: each lane's stacked piece gradients,
+    summed over the axes the leaf is replicated on."""
+    mesh = leaf.tensors[0].mesh
+
+    def grads(t):
+        if spmd.representative():  # one lane's program (dist/spmd.py)
+            p = t.pieces[0]
+            return [torch.zeros_like(p) if p.grad is None else p.grad] \
+                * len(t.pieces)
+        return [torch.zeros_like(p) if p.grad is None else p.grad
+                for p in t.pieces]
+    parts = [t.lanes(grads(t)) for t in leaf.tensors]
+    for t in leaf.tensors:
+        for p in t.pieces:
+            p.grad = None
+    g = leaf.lanes(parts)
+    used = spec_axes(leaf.spec)
+    rest = tuple(a for a in mesh.axis_names if a not in used)
+    if rest:
+        g = spmd.psum(g, rest, mesh)
+    return spmd.Lanes(g, leaf.spec, mesh, leaf.shape, leaf.dtype)
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, *,
