@@ -78,9 +78,9 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    fold sssp runs);
 9. zoo and baselines — on a warm session: (a) label_propagation and kcore
    (k = 2) through B1, B2 and the plain version, values and
-   ``IterationStats`` bitwise equal; (b) ``run_batch`` of lp over phase 5's
-   sources and of kcore over k = 1..16 (K = 16) through B1, B3 and plain,
-   each column equal to its solo run; (c) a ``triangles`` slab [0, 128) in
+   ``IterationStats`` bitwise equal; (b) ``run_batch`` of lp over the
+   first ``ZOO_K`` (8) of phase 5's sources and of kcore over k = 1..8
+   through B1, B3 and plain, each column equal to its solo run; (c) a ``triangles`` slab [0, 128) in
    two chunks of 64 (K = 64, three sweeps each) through B1, B3 and plain,
    one engine a config; (d) 16 random walks (length 8, seed 0) on the
    card's session and a ``device="cpu"`` session, both cold: the same
@@ -174,7 +174,24 @@ Run from the root of the repository, on a machine with a CUDA GPU and
    remat, seed 0, ``MESH_TRAIN_STEPS`` (3) steps on phase 12's batches:
    each step's loss to phase 12's no-mesh loss within ``MESH_TRAIN_RTOL``
    (2e-3), each lane's parameter and optimizer-state bytes (its own
-   storages) kept for phase 14.  The phase launches no SpMV kernel.
+   storages) kept for phase 14; (f) the recurrent blocks tensor parallel
+   over 'model' (``REC_MODELS``): xlstm-1.3b at its published width and
+   depth and jamba-v0.1-52b at its published width, depth cut to 8 layers
+   (one reference unit: 7 Mamba, 1 attention, 4 MoE), bf16, seed 0, its
+   MoE capacity factor E / k (no token dropped, so the mesh and no mesh
+   route alike), one model on the card at a time, on (data 2 x model 2)
+   lanes and with no mesh: a ``REC_PROMPT`` (128) token prefill at batch
+   ``REC_BATCH`` (4), then ``REC_STEPS`` (16) greedy steps, the no-mesh
+   tokens fed to both: xlstm's logits to ``MESH_BF16_TOL``; jamba's
+   (whose bf16 run sits farther from float32 than that bound on its own)
+   the same pair in float32 to ``LLM_F32_ATOL`` + ``LLM_F32_RTOL``, and
+   its bf16 mesh run no farther from the float32 run than the no-mesh
+   bf16 run, plus ``MESH_BF16_TOL``; greedy tokens equal but at a near
+   tie; no Mamba, mLSTM or sLSTM weight gathered over
+   'model', each lane's Mamba scan on [2, 128, 4096, 16] and ssm state
+   part [2, 4096, 16], mLSTM on 2 heads, sLSTM steps on 1,024 channels;
+   ms a prefill and a step with and without the mesh, peak memory, within
+   ``REC_SECONDS`` (40 s).  The phase launches no SpMV kernel.
 14. dry run — ``launch.dryrun.trace_cell`` of phase 12's cell (gemma-2b
    at full width, B = 4 x S = 512, AdamW with float32 masters, remat
    "nothing") on one ``meta`` lane, beside phase 12's real step on the
@@ -207,6 +224,7 @@ non-zero before it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -250,7 +268,8 @@ REPLACES = {"ell_spmv_fused": "src/repro/kernels/spmv/spmv.py:328",
 LANES = 2                      # phase 7: lanes, and the D = S of the tiling
 SMALL_SCALE = 18               # phase 8 (g)'s stores, phase 9's baselines
 ZOO_ITERS = 30                 # phase 9: the cap on every zoo run
-TRACE_SECONDS = 12.0           # phase 10: the scale-22 trace's length
+ZOO_K = 8                      # phase 9: the lp and kcore batches' columns
+TRACE_SECONDS = 8.0            # phase 10: the scale-22 trace's length
 SMALL_EVENTS = 32              # phase 10 (d): the trace the cpu session
 SMALL_SPEED = 2.0              # replays too (events expected), its speed-up
 TILE_WIDTH = 128               # ELL width of the 2-D tiles
@@ -300,6 +319,21 @@ MESH_CARD_CPU_TOL = 1e-4       # (c): atol and rtol, float32 (phase 12's)
 MESH_CLI_STEPS = 8             # (d)
 MESH_TRAIN_STEPS = 3           # (e): phase 12's first steps on 2 x 2 lanes
 MESH_TRAIN_RTOL = 2e-3         # (e): the bf16 trajectory bound of the CLI
+# (f): the recurrent blocks tensor parallel over 'model', at full width:
+# (arch, depth or None for the published one, whether a float32 pair
+# holds the logits).  jamba's MoE capacity factor is E / k, so no expert
+# drops a token (a drop depends on the tokens a data lane holds, so the
+# mesh and no mesh would drop different ones).  jamba's bf16 run with no
+# mesh sits up to 0.81 from float32 on its own weights (an H100 80GB HBM3
+# at 700 W: a rounding moves a token to another expert, and 8 layers
+# carry it), past MESH_BF16_TOL itself, so its bf16 pair cannot be held
+# to it: its
+# float32 pair is held to LLM_F32_ATOL + LLM_F32_RTOL, and its bf16 mesh
+# run to no farther from that float32 run than the no-mesh bf16 run is,
+# plus MESH_BF16_TOL
+REC_MODELS = (("xlstm-1.3b", None, False), ("jamba-v0.1-52b", 8, True))
+REC_BATCH, REC_PROMPT, REC_STEPS = 4, 128, 16
+REC_SECONDS = 40.0             # (f)'s budget
 # phase 14: the dry run's argument + temp bytes on one meta lane against
 # phase 12's measured peak (the caching allocator rounds each block up, and
 # the peak holds a second batch); and its time budget
@@ -331,10 +365,11 @@ def check(cond: bool, what: str) -> None:
 # --------------------------------------------------------------------------
 def phase_data(tmp: Path, scale: int, edge_factor: int, pool):
     """-> (store, layouts): the preprocessed store, and futures on ``pool``
-    for the host arrays phases 3 and 7 lay the same edges out in, built
-    while the store is preprocessed: ``layouts["tiles"]`` (``tile_ells``)
-    and ``layouts["mesh"][D]`` (``partition_for_mesh`` at D = 1 and
-    LANES), each as ``(result, seconds)``."""
+    for the host arrays phases 3 and 7 lay the same edges out in:
+    ``layouts["tiles"]`` (``tile_ells``), built while the store is
+    preprocessed, and ``layouts["mesh"][D]`` (``partition_for_mesh`` at D
+    = 1 and LANES), built after it, beside phases 3 to 6; each as
+    ``(result, seconds)``."""
     import numpy as np
 
     from repro_torch.core.distributed import partition_for_mesh
@@ -356,12 +391,13 @@ def phase_data(tmp: Path, scale: int, edge_factor: int, pool):
     dst = np.concatenate([c[1] for c in chunks])
     del chunks
     n = meta["num_vertices"]
-    layouts = dict(tiles=pool.submit(_timed, tile_ells, src, dst, n),
-                   mesh={D: pool.submit(_timed, partition_for_mesh, src, dst,
-                                        n, D) for D in (LANES, 1)})
+    layouts = dict(tiles=pool.submit(_timed, tile_ells, src, dst, n))
     t1 = time.perf_counter()
     store = preprocess_graph(str(tmp / "edges"), str(tmp / "store"))
     t2 = time.perf_counter()
+    # phase 7's partitions, off the cores preprocessing keeps busy
+    layouts["mesh"] = {D: pool.submit(_timed, partition_for_mesh, src, dst,
+                                      n, D) for D in (LANES, 1)}
     shutil.rmtree(tmp / "edges")
     disk = sum(f.stat().st_size for f in (tmp / "store").iterdir())
     check(store.num_vertices == n, f"store has {store.num_vertices} "
@@ -394,22 +430,37 @@ def tile_ells(src, dst, n: int) -> dict:
     ``spmv_2d``: tile (d, s) holds the edges into destination block d from
     source range s, as blocked-ELL of width ``TILE_WIDTH`` whose cols are
     local to the source range (``build_csr_shards`` + ``csr_to_ell``, on
-    the host).  The blocks are ``ceil(n / LANES)`` long, so the last one
-    may reach past n.  -> {(d, s): ELLShard}."""
+    the host, a thread a tile).  The edges are first put in destination
+    order once (stably, by two 16-bit radix passes), so each tile's share
+    arrives sorted and its stable sort by destination finds nothing to
+    move: the same tiles.  The blocks are ``ceil(n / LANES)`` long, so the
+    last one may reach past n.  -> {(d, s): ELLShard}."""
+    import numpy as np
+
     from repro_torch.core.shards import build_csr_shards, csr_to_ell
 
+    check(n <= 1 << 32, f"{n} vertices: more than two 16-bit digits")
+    order = np.argsort((dst & 0xFFFF).astype(np.uint16), kind="stable")
+    order = order[np.argsort((dst[order] >> 16).astype(np.uint16),
+                             kind="stable")]
+    src, dst = src[order], dst[order]
+    del order
     per = vb = -(-n // LANES)
-    ells = {}
-    for d in range(LANES):
-        into = (dst // per) == d
-        for s in range(LANES):
-            m = into & ((src // vb) == s)
-            csr = build_csr_shards(src[m] - s * vb, dst[m] - d * per, per,
-                                   threshold_edge_num=1 << 62)[0]
-            ells[d, s] = csr_to_ell(csr, max_width=TILE_WIDTH)
-            check(ells[d, s].shape[1] == TILE_WIDTH,
-                  f"tile width {ells[d, s].shape[1]}")
-    return ells
+    into = dst // per
+    frm = src // vb
+
+    def tile(key):
+        d, s = key
+        m = (into == d) & (frm == s)
+        csr = build_csr_shards(src[m] - s * vb, dst[m] - d * per, per,
+                               threshold_edge_num=1 << 62)[0]
+        ell = csr_to_ell(csr, max_width=TILE_WIDTH)
+        check(ell.shape[1] == TILE_WIDTH, f"tile width {ell.shape[1]}")
+        return ell
+    keys = [(d, s) for d in range(LANES) for s in range(LANES)]
+    with ThreadPoolExecutor(max_workers=len(keys),
+                            thread_name_prefix="tiles") as pool:
+        return dict(zip(keys, pool.map(tile, keys)))
 
 
 def build_tiles(torch, layouts, n: int, dev) -> dict:
@@ -629,7 +680,9 @@ def _unaligned(torch, t):
 
 def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
     """``(device_ms, events_ms)`` for one pass over ``calls`` (one launch per
-    shard), averaged over ``reps`` passes after two warm-up passes.
+    shard), averaged over ``reps`` passes after two warm-up passes; a pass
+    slower than 0.1 s (a plain batched version) has one warm-up pass and
+    about a second of timed ones, two at least.
 
     ``device_ms`` sums the durations of the device activities the passes
     ran (kernels, copies, memsets), from torch.profiler: the kernel's own
@@ -638,10 +691,17 @@ def _time_sweep(torch, calls, reps: int = 10) -> tuple[float, float]:
     kernel — at ~35 us a kernel, the host's launch overhead shows there."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    t0 = time.perf_counter()
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if first < 0.1:
         for c in calls:
             c()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    else:
+        reps = max(2, min(reps, int(1.0 / first) + 1))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with warnings.catch_warnings():  # "clears events at end of cycle"
@@ -1391,8 +1451,8 @@ def multi_resident(torch, dev, mesh, n, tiling, solo) -> int:
     for D in (1, LANES):
         graphs[D], secs[D] = mesh[D].result()
     took = ", ".join(f"{t:.1f}s at D = {D}" for D, t in secs.items())
-    log(f"multi: partition_for_mesh built on the host (beside "
-        f"preprocessing) in {took}; [D, R, W] = "
+    log(f"multi: partition_for_mesh built on the host (beside phases 3 "
+        f"to 6) in {took}; [D, R, W] = "
         f"{[list(g.cols.shape) for g in graphs.values()]}")
     runs = [("cc", {}, 200), ("sssp", dict(source=0), 200),
             ("bfs", dict(source=0), 200), ("pagerank", {}, 10)]
@@ -2029,13 +2089,15 @@ def zoo_solo(s, variants, count) -> None:
 
 
 def zoo_batches(s, variants, sources, count) -> dict:
-    """(b) lp_multi over phase 5's sources and kcore_multi over k = 1..16
-    at K = 16 through B1, B3 and plain; each column equals its solo run.
-    Returns the solo results by (app, source or k)."""
+    """(b) lp_multi over the first ``ZOO_K`` of phase 5's sources and
+    kcore_multi over k = 1..ZOO_K through B1, B3 and plain; each column
+    equals its solo run.  Returns the solo results by (app, source or
+    k)."""
     import numpy as np
 
     solo = {}
-    for app, values in (("lp", sources), ("kcore", list(range(1, 17)))):
+    for app, values in (("lp", sources[:ZOO_K]),
+                        ("kcore", list(range(1, ZOO_K + 1)))):
         results = {}
         for variant, cfg in variants.items():
             t0 = time.perf_counter()
@@ -2058,7 +2120,7 @@ def zoo_batches(s, variants, sources, count) -> dict:
                   and np.array_equal(r.column_iterations,
                                      want.column_iterations)
                   and _stats(r) == _stats(want),
-                  f"{app} K=16 {variant} differs from the plain run")
+                  f"{app} K={ZOO_K} {variant} differs from the plain run")
         batch = results["fused"]
         t0 = time.perf_counter()
         seconds = 0.0
@@ -2074,9 +2136,9 @@ def zoo_batches(s, variants, sources, count) -> dict:
             check(np.array_equal(batch.values[:, k], r.values)
                   and int(batch.column_iterations[k]) == r.iterations,
                   f"{app} column {k} ({v}) differs from its solo run")
-        log(f"zoo: {app} K=16 fused {batch.total_seconds:.3f}s; 16 solo runs "
-            f"{seconds:.3f}s (wall {time.perf_counter() - t0:.1f}s), each "
-            "equal to its column")
+        log(f"zoo: {app} K={ZOO_K} fused {batch.total_seconds:.3f}s; "
+            f"{ZOO_K} solo runs {seconds:.3f}s (wall "
+            f"{time.perf_counter() - t0:.1f}s), each equal to its column")
     return solo
 
 
@@ -2164,8 +2226,8 @@ def zoo_service(s, sources, solo, walks, count) -> int:
     import numpy as np
 
     tri = [0, 1, 2, 3]
-    queries = ([("lp", dict(source=v)) for v in sources]
-               + [("kcore", dict(k=k)) for k in range(1, 17)]
+    queries = ([("lp", dict(source=v)) for v in sources[:ZOO_K]]
+               + [("kcore", dict(k=k)) for k in range(1, ZOO_K + 1)]
                + [("triangle_count", dict(vertex=v)) for v in tri]
                + [("random_walk", dict(source=v, length=8, seed=0))
                   for v in sources])
@@ -2442,8 +2504,9 @@ def small_replays(tmp: Path, big_trace, qps: float, slo_ms: float,
                   shards: list, metrics: dict, card: str) -> None:
     """(d) The same mix at SMALL_SCALE: one trace replayed on a cuda
     session with kernels, one with ``use_kernel=False`` and a
-    ``device="cpu"`` session, then by the bench CLI in a subprocess on the
-    card; the four digests must be equal."""
+    ``device="cpu"`` session, and by the bench CLI in a subprocess on the
+    card while the cpu session replays; the four digests must be
+    equal."""
     from repro_torch.serve.bench import _default_trace, replay_trace
     from repro_torch.serve.graph_service import ServiceConfig
     from repro_torch.session import GraphSession
@@ -2461,33 +2524,43 @@ def small_replays(tmp: Path, big_trace, qps: float, slo_ms: float,
     cfg = ServiceConfig(max_batch=BATCH_K, max_wait_ms=50.0, max_inflight=2,
                         memoize=False)
     digests = {}
-    for label, kw in (("cuda", {}), ("cuda plain", dict(use_kernel=False)),
-                      ("cpu", dict(device="cpu"))):
-        with GraphSession(str(path), **kw) as s:
-            if label == "cuda":
-                r = _hub_replay(s, trace, cfg, metrics["small"], shards,
-                                f"scale-{SMALL_SCALE} replay",
-                                speed=SMALL_SPEED)
-            else:
-                r = replay_trace(s, trace, cfg, speed=SMALL_SPEED)
-                _check_replay(r, f"scale-{SMALL_SCALE} {label} replay")
-        digests[label] = r["result_digest"]
-        log(_telemetry_line(f"scale {SMALL_SCALE} {label} "
-                            f"speed={SMALL_SPEED}", r, card))
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.serve.bench", "--mode",
-         "replay", "--replay-trace", str(trace_file), "--graph", str(path),
-         "--adaptive", "--slo-p99-ms", f"{slo_ms:.3f}", "--speed",
-         str(SMALL_SPEED), "--metrics", str(metrics["cli"])],
-        capture_output=True, text=True, env=_src_env(), timeout=300)
-    check(out.returncode == 0, f"bench CLI exited {out.returncode}: "
-                               f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
-    lines = out.stdout.splitlines()
+    cli = None
+    try:
+        for label, kw in (("cuda", {}), ("cuda plain", dict(use_kernel=False)),
+                          ("cpu", dict(device="cpu"))):
+            if label == "cpu":  # the CLI replays on the card meanwhile
+                t0 = time.perf_counter()
+                cli = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.serve.bench", "--mode",
+                     "replay", "--replay-trace", str(trace_file), "--graph",
+                     str(path), "--adaptive", "--slo-p99-ms", f"{slo_ms:.3f}",
+                     "--speed", str(SMALL_SPEED), "--metrics",
+                     str(metrics["cli"])], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, env=_src_env())
+            with GraphSession(str(path), **kw) as s:
+                if label == "cuda":
+                    r = _hub_replay(s, trace, cfg, metrics["small"], shards,
+                                    f"scale-{SMALL_SCALE} replay",
+                                    speed=SMALL_SPEED)
+                else:
+                    r = replay_trace(s, trace, cfg, speed=SMALL_SPEED)
+                    _check_replay(r, f"scale-{SMALL_SCALE} {label} replay")
+            digests[label] = r["result_digest"]
+            log(_telemetry_line(f"scale {SMALL_SCALE} {label} "
+                                f"speed={SMALL_SPEED}", r, card))
+        stdout, stderr = cli.communicate(timeout=300)
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    check(cli.returncode == 0, f"bench CLI exited {cli.returncode}: "
+                               f"{stdout[-2000:]} {stderr[-2000:]}")
+    lines = stdout.splitlines()
     digest = [ln.split("=", 1)[1] for ln in lines
               if ln.startswith("# result_digest=")]
     digests["cli"] = digest[0] if digest else None
-    log(f"telemetry: bench CLI in {time.perf_counter() - t0:.1f}s: "
+    log(f"telemetry: bench CLI, beside the cpu replay, done "
+        f"{time.perf_counter() - t0:.1f}s after its start: "
         + " | ".join(ln for ln in lines if not ln.startswith("mode,")))
     check(len(set(digests.values())) == 1,
           f"scale-{SMALL_SCALE} replay digests differ: {digests}")
@@ -3500,6 +3573,267 @@ def mesh_train(torch, card: str, dev, train: dict) -> dict:
             "peak_gb": (peak - held) / 1e9}
 
 
+def recurrent_run(torch, model, prompt, fed) -> tuple:
+    """A ``REC_PROMPT``-token prefill (after one untimed, for cuBLAS's
+    plans) and ``REC_STEPS`` greedy steps (``fed``: the tokens to feed
+    instead of the greedy ones) -> (logits [B, 1 + steps, V], greedy
+    tokens, caches, ms the prefill, ms a step)."""
+    cache_len = REC_PROMPT + REC_STEPS
+    with torch.inference_mode():
+        model.prefill({"tokens": prompt}, cache_len=cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _ = model.prefill({"tokens": prompt},
+                                          cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        seq, toks = [logits[:, 0]], [logits[:, 0].argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(REC_STEPS):
+            tok = (toks[-1] if fed is None else fed[:, i])[:, None]
+            logits, caches = model.decode_step(caches, tok, REC_PROMPT + i)
+            seq.append(logits[:, 0])
+            toks.append(logits[:, 0].argmax(-1))
+        torch.cuda.synchronize()
+    return (torch.stack(seq, 1), torch.stack(toks, 1), caches, prefill_ms,
+            (time.perf_counter() - t0) / REC_STEPS * 1e3)
+
+
+class RecurrentProbe:
+    """While active: the specs each Mamba, mLSTM and sLSTM weight of
+    ``model`` is gathered to (``nn.gather_to``), and the shapes the
+    recurrences run on (Mamba's scan input, mLSTM's chunked q, sLSTM's
+    step input)."""
+
+    MIXERS = (".mamba.", ".mlstm.", ".slstm.")
+
+    def __init__(self, model):
+        from repro_torch.models import nn as nnm
+        from repro_torch.models import ssm, xlstm
+        from repro_torch.models.nn import named_weights
+
+        self.mine = {id(w): name for name, w in named_weights(model)
+                     if any(m in name for m in self.MIXERS)}
+        self.gathered: dict = {}
+        self.shapes: dict = {}
+        self.saved = [(nnm, "gather_to"), (ssm, "_ssm_scan_chunked"),
+                      (xlstm, "_mlstm_chunked"), (xlstm, "_slstm_step")]
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.saved]
+        real_gather = self.saved[0][2]
+
+        def gather(w, target, ctx, **kw):
+            if id(w) in self.mine:
+                self.gathered[self.mine[id(w)]] = (tuple(w.spec),
+                                                   tuple(target))
+            return real_gather(w, target, ctx, **kw)
+        self.saved[0][0].gather_to = gather
+        for mod, name, fn in self.saved[1:]:
+            def shape_of(*a, _fn=fn, _name=name, **kw):
+                self.shapes.setdefault(_name, set()).add(tuple(a[0].shape))
+                return _fn(*a, **kw)
+            setattr(mod, name, shape_of)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def model_gathers(self) -> list:
+        """The recurrent weights a 'model' split was gathered off."""
+        from repro_torch.dist.context import _axes_tuple
+
+        return [name for name, (spec, target) in self.gathered.items()
+                if any("model" in _axes_tuple(e)
+                       and "model" not in _axes_tuple(t)
+                       for e, t in zip(spec, target + (None,) * len(spec)))]
+
+
+def recurrent_pair(torch, cfg, dev, prompt, fed, probe: bool) -> dict:
+    """``recurrent_run`` with no mesh, then on (data 2 x model 2) lanes
+    of ``dev`` from the same seed, one model on the card at a time
+    (``fed``: the tokens both are fed, default the no-mesh run's greedy
+    ones); ``probe``: watch the mesh run (``RecurrentProbe``) and count
+    its collectives.  -> logits, tokens, times, build seconds, peak bytes
+    and what the probe saw."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.context import make_rules
+    from repro_torch.models.model import Model
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"held": held}
+    t0 = time.perf_counter()
+    base = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    out["base_build"] = time.perf_counter() - t0
+    out["params"] = base.param_count()
+    (out["want"], out["want_tok"], _, out["base_prefill"],
+     out["base_ms"]) = recurrent_run(torch, base, prompt, fed)
+    del base
+    torch.cuda.empty_cache()
+    if fed is None:
+        fed = out["want_tok"][:, :-1]
+    t0 = time.perf_counter()
+    out["mesh"] = lane_mesh(dev, (2, 2))
+    model = Model(cfg, ctx=make_rules(out["mesh"], cfg), seed=0)
+    torch.cuda.synchronize()
+    out["build"] = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        if probe:
+            out["probe"] = stack.enter_context(RecurrentProbe(model))
+            out["counts"] = stack.enter_context(spmd.count_collectives())
+        (out["got"], out["got_tok"], caches, out["prefill"],
+         out["ms"]) = recurrent_run(torch, model, prompt, fed)
+    out["ssm_parts"] = {tuple(p.shape) for c in caches
+                        for m, leaves in c.items() if m == "mamba"
+                        for p in leaves["ssm"].parts.flat}
+    del model, caches
+    torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated() - held
+    return out
+
+
+def _tokens_at_near_ties(torch, got_tok, want_tok, want, tol: dict,
+                         what: str) -> int:
+    """Greedy tokens equal but where the no-mesh run's top two logits lie
+    within twice ``tol`` (either token is right there) -> how many
+    differ."""
+    top2 = want.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    differ = (got_tok != want_tok).cpu().numpy()
+    bound = tol["atol"] + tol["rtol"] * float(top2[..., 0].abs().max())
+    check(bool((margin[differ] < 2 * bound).all()),
+          f"mesh: {what} greedy tokens differ beyond a near tie: margins "
+          f"{margin[differ]}")
+    return int(differ.sum())
+
+
+def mesh_recurrent(torch, card: str, dev) -> dict:
+    """(f) xlstm-1.3b at its published width and depth and jamba at its
+    published width, 8 layers (one reference unit), in bf16 on (data 2 x
+    model 2) lanes of the card and with no mesh, the same weights: a
+    prefill and greedy decode steps, the no-mesh tokens fed to both; for
+    jamba the same in float32 (``REC_MODELS``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.nn import RECURRENT, TP_GATHER
+
+    started = time.perf_counter()
+    out = {}
+    f32_tol = dict(atol=LLM_F32_ATOL, rtol=LLM_F32_RTOL)
+    for arch, layers, f32_pair in REC_MODELS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts
+                / cfg.moe.top_k))
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (REC_BATCH, REC_PROMPT))).long().to(dev)
+        r = recurrent_pair(torch, cfg, dev, prompt, None, probe=True)
+        probe, counts = r["probe"], r["counts"]
+        check(not probe.model_gathers() and len(probe.gathered) ==
+              len(probe.mine),
+              f"mesh: {arch}: recurrent weights gathered over 'model': "
+              f"{probe.model_gathers()}")
+        labels = {k.split(": ", 1)[1] for k in counts.labelled}
+        check(RECURRENT in labels and labels <= {RECURRENT, TP_GATHER},
+              f"mesh: {arch}: labelled collectives {counts.labelled}")
+        Bl = REC_BATCH // 2
+        if cfg.mamba is not None:
+            di, N = 2 * cfg.d_model, cfg.mamba.d_state
+            check(r["ssm_parts"] == {(Bl, di // 2, N)} and
+                  probe.shapes["_ssm_scan_chunked"] ==
+                  {(Bl, REC_PROMPT, di // 2, N)},
+                  f"mesh: {arch}: ssm state parts {r['ssm_parts']}, scan "
+                  f"inputs {probe.shapes.get('_ssm_scan_chunked')}")
+        else:
+            H, d = cfg.num_heads, cfg.d_model
+            hd = int(d * cfg.xlstm.proj_factor_mlstm) // H
+            check(probe.shapes["_mlstm_chunked"] ==
+                  {(Bl, REC_PROMPT, H // 2, hd)} and
+                  probe.shapes["_slstm_step"] == {(Bl, 4, d // 2)},
+                  f"mesh: {arch}: recurrences ran on {probe.shapes}")
+        got, want = r["got"].float(), r["want"].float()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()),
+              f"mesh: {arch} on 2 x 2: logits not finite")
+        res = {"params": r["params"], "prefill_ms": r["prefill"],
+               "no_mesh_prefill_ms": r["base_prefill"], "ms": r["ms"],
+               "no_mesh_ms": r["base_ms"], "max_diff": err,
+               "peak_gb": r["peak"] / 1e9}
+        if f32_pair:
+            f = recurrent_pair(torch, dataclasses.replace(
+                cfg, dtype="float32"), dev, prompt, r["want_tok"][:, :-1],
+                probe=False)
+            res["f32_max_diff"] = _close(
+                torch, f["got"], f["want"], f32_tol,
+                f"{arch} float32 on 2 x 2 against no mesh")
+            res["f32_token_diffs"] = _tokens_at_near_ties(
+                torch, f["got_tok"], f["want_tok"], f["want"], f32_tol,
+                f"{arch} float32")
+            ref = f["want"]
+            base_off = float((want - ref).abs().max())
+            mesh_off = float((got - ref).abs().max())
+            bound = base_off + MESH_BF16_TOL["atol"] + MESH_BF16_TOL[
+                "rtol"] * float(ref.abs().max())
+            check(mesh_off <= bound,
+                  f"mesh: {arch} bf16 on 2 x 2 {mesh_off:.3g} from float32, "
+                  f"no mesh {base_off:.3g} (bound {bound:.3g})")
+            res.update(bf16_off_f32=mesh_off, no_mesh_bf16_off_f32=base_off,
+                       f32_peak_gb=f["peak"] / 1e9)
+            gate = (f"float32 pair: max |logit diff| {res['f32_max_diff']:.3g}"
+                    f" (tolerance {LLM_F32_ATOL} + {LLM_F32_RTOL} rel), "
+                    f"{res['f32_token_diffs']} greedy tokens differ (each at "
+                    f"a near tie), peak {res['f32_peak_gb']:.3f} GB; bf16: "
+                    f"max |logit diff| {err:.3g}, {mesh_off:.3g} from "
+                    f"float32 against the no-mesh run's {base_off:.3g} "
+                    f"(bound {bound:.3g})")
+            del f, ref
+        else:
+            _close(torch, got, want, MESH_BF16_TOL,
+                   f"{arch} on 2 x 2 against no mesh")
+            res["token_diffs"] = _tokens_at_near_ties(
+                torch, r["got_tok"], r["want_tok"], want, MESH_BF16_TOL,
+                arch)
+            gate = (f"max |logit diff| {err:.3g}, {res['token_diffs']} of "
+                    f"{r['got_tok'].numel()} greedy tokens differ (each at "
+                    f"a near tie)")
+        shapes = {k: sorted(v) for k, v in probe.shapes.items()}
+        log(f"mesh: {arch} bf16 at full width, {cfg.num_layers} layers "
+            f"({r['params']:,} params), batch {REC_BATCH}, a {REC_PROMPT}-"
+            f"token prefill and {REC_STEPS} greedy steps on {r['mesh']} "
+            f"against no mesh: prefill {r['prefill']:.3f} ms (no mesh "
+            f"{r['base_prefill']:.3f}), {r['ms']:.3f} ms a step (no mesh "
+            f"{r['base_ms']:.3f}); {gate}; built in {r['base_build']:.2f}s "
+            f"with no mesh, {r['build']:.2f}s on the lanes; peak memory "
+            f"{r['peak'] / 1e9:.3f} GB above the {r['held'] / 1e9:.3f} GB "
+            f"held before; {card}")
+        log(f"mesh:   {arch}: no recurrent weight gathered over 'model' "
+            f"({len(probe.gathered)} gathered over 'data' only); a lane's "
+            f"recurrences ran on {shapes}"
+            + (f", its ssm state parts {sorted(r['ssm_parts'])}"
+               if r["ssm_parts"] else "")
+            + f"; collective bytes a lane, prefill and decode: "
+            f"{dict(counts)}, of them {counts.labelled}")
+        out[arch] = res
+        del r, got, want
+    seconds = time.perf_counter() - started
+    check(seconds <= REC_SECONDS,
+          f"mesh: (f) took {seconds:.1f}s, over its {REC_SECONDS:.0f}s "
+          f"budget")
+    log(f"mesh: (f) the recurrent blocks at full width in {seconds:.1f}s")
+    out["seconds"] = seconds
+    return out
+
+
 def phase_mesh(torch, card: str, dev, train: dict) -> dict:
     """Phase 13: the mesh.  It must launch no SpMV kernel."""
     from repro_torch.kernels.spmv import cuda
@@ -3512,6 +3846,7 @@ def phase_mesh(torch, card: str, dev, train: dict) -> dict:
     out["card_cpu_max_diff"] = mesh_card_vs_cpu(torch, dev)
     out["cli_losses"] = mesh_cli(dev)
     out["train"] = mesh_train(torch, card, dev, train)
+    out["recurrent"] = mesh_recurrent(torch, card, dev)
     check(dict(cuda.launches) == before,
           f"mesh: SpMV launches moved: {before} -> {dict(cuda.launches)}")
     log("mesh: no SpMV kernel launched")

@@ -354,11 +354,13 @@ def pmean(parts: np.ndarray, axes, mesh: Mesh) -> np.ndarray:
 
 
 def all_to_all(parts: np.ndarray, axis: str, split_axis: int,
-               concat_axis: int, mesh: Mesh) -> np.ndarray:
+               concat_axis: int, mesh: Mesh, *,
+               label: str | None = None) -> np.ndarray:
     """``jax.lax.all_to_all(..., tiled=True)`` over one mesh axis of n
     lanes: each lane cuts its tensor into n chunks along ``split_axis``,
     chunk k goes to lane k, and each lane concatenates what it receives
-    along ``concat_axis`` in the senders' index order."""
+    along ``concat_axis`` in the senders' index order.  Its backward is
+    the inverse all-to-all."""
     n = mesh.shape[axis]
     size = parts.flat[0].shape[split_axis]
     if size % n:
@@ -370,7 +372,8 @@ def all_to_all(parts: np.ndarray, axis: str, split_axis: int,
         dev = mesh.devices[dst]
         return torch.cat([parts[src].narrow(split_axis, k * size, size)
                           .to(dev) for src in group], concat_axis)
-    return _record("all-to-all", _collect(parts, (axis,), mesh, make))
+    return _record("all-to-all", _collect(parts, (axis,), mesh, make),
+                   label=label)
 
 
 def all_gather(parts: np.ndarray, axes, dim: int, mesh: Mesh, *,

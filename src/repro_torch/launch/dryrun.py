@@ -58,8 +58,9 @@ What the fields mean in the port (``analyze``):
     reduce-scatters, the gradient all-reduces, the tensor-parallel and
     expert-parallel ones.  ``collectives_note`` names the bytes of each
     kind that ``derived_collectives``' rule does not model (the weights
-    a layer gathers over 'model', the Mamba and xLSTM stopgap, the
-    long-context decode's gathers).  ``derived_collectives`` is that rule,
+    a layer gathers over 'model', the Mamba and xLSTM activations and
+    states regrouped over 'model', the long-context decode's gathers).
+    ``derived_collectives`` is that rule,
     kept as a check: on a train step the all-gather and reduce-scatter
     bytes, less the named ones, equal it.
 

@@ -31,9 +31,12 @@ parallel over 'model' (a ``psum`` after the row-parallel ``wo`` and
 ``psum``), and so are the logits and the loss's log-softmax (``pmax`` and
 ``psum`` over 'model').  The norms are replicated.  The MoE runs its
 expert-parallel paths on the lane's own expert shards.  Mamba, mLSTM and
-sLSTM gather their weights (and their states' 'model' splits) whole
-before use and compute replicated over 'model', a stopgap named in the
-collective counts.  Caches are one dict a layer whose leaves are
+sLSTM are tensor parallel over 'model' too (``ssm.mamba_lanes``,
+``xlstm.mlstm_lanes``, ``slstm_lanes``): each lane computes on its
+channels or heads of every weight, with no weight gathered over 'model';
+their activations and states are regrouped over 'model' where a layer
+needs them laid out otherwise (``nn.RECURRENT`` in the collective
+counts).  Caches are one dict a layer whose leaves are
 ``spmd.Lanes`` laid out as ``launch.shapes.cache_shardings`` lays them
 out (a long-context cache's sequence over 'data', the whole batch on each
 lane, as ``flash_decode_sharded`` reads it).  The entry points take and
@@ -61,7 +64,7 @@ import numpy as np
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.dist import spmd
-from repro_torch.dist.context import DISABLED, P, ShardCtx, _axes_tuple
+from repro_torch.dist.context import DISABLED, P, ShardCtx
 from repro_torch.models.attention import (Attention, attention_apply,
                                           attention_lanes, kv_repeat_for,
                                           positions_for)
@@ -70,10 +73,11 @@ from repro_torch.models.moe import MoE, moe_apply, moe_lanes
 from repro_torch.models.nn import (DTYPES, Init, Norm, apply_norm,
                                    dense_spec, gather_to, lane_weights,
                                    named_weights, split_over_model)
-from repro_torch.models.ssm import Mamba, init_mamba_state, mamba_apply
+from repro_torch.models.ssm import (Mamba, init_mamba_state, mamba_apply,
+                                    mamba_lanes)
 from repro_torch.models.xlstm import (MLSTM, SLSTM, init_mlstm_state,
                                       init_slstm_state, mlstm_apply,
-                                      slstm_apply)
+                                      mlstm_lanes, slstm_apply, slstm_lanes)
 
 VOCAB_PAD_MULTIPLE = 2048  # the reference pads for 16-way vocab sharding
 
@@ -686,15 +690,24 @@ class Model(nn.Module):
                      enc_out, causal):
         cfg, ctx = self.cfg, self.ctx
         mixer, ffn = p.desc
+        state = None if cache is None else cache[mixer]
         h = self._norm_lanes(x, p.norm1)
         if mixer == "attn":
             a = attention_lanes(
                 p.attn, h, positions, cfg, ctx, causal=causal,
-                caches=None if cache is None else _lane_dicts(cache["attn"]),
+                caches=None if state is None else _lane_dicts(state),
                 cache_index=cache_index,
                 kv_seq_sharded=self.long_context and not cfg.sliding_window)
+        elif mixer == "mamba":
+            # unroll: one full-sequence chunk (the reference's roofline mode)
+            a = mamba_lanes(p.mamba, h, cfg.mamba, ctx, cache=state,
+                            chunk=h.flat[0].shape[1] if self.unroll else 256,
+                            scan_dtype=self.ssm_dtype)
+        elif mixer == "mlstm":
+            a = mlstm_lanes(p.mlstm, h, cfg.num_heads, cfg.xlstm, ctx,
+                            cache=state)
         else:
-            a = self._replicated_mixer(mixer, getattr(p, mixer), h, cache)
+            a = slstm_lanes(p.slstm, h, cfg.num_heads, ctx, cache=state)
         x = spmd.lanewise(torch.add, x, a)
         if enc_out is not None:
             h = self._norm_lanes(x, p.norm_x)
@@ -712,45 +725,6 @@ class Model(nn.Module):
             x = spmd.lanewise(torch.add, x, y)
         return x, aux
 
-    def _replicated_mixer(self, mixer: str, p, h, cache):
-        """Mamba, mLSTM or sLSTM on lanes, the stopgap (module docstring):
-        the weights gathered whole, the state's splits other than the
-        batch's gathered, the block's own function on each lane, and the
-        new state cut back to its layout."""
-        cfg, ctx, mesh = self.cfg, self.ctx, self.ctx.mesh
-        w = lane_weights(p, ctx, lambda name, spec: P(), label=STOPGAP)
-        dp = set(_axes_tuple(self._dp()))
-        state = None
-        if cache is not None:
-            state = {}
-            for k, t in cache[mixer].items():
-                parts = t.parts
-                for dim, e in enumerate(t.spec):
-                    if e is not None and not set(_axes_tuple(e)) <= dp:
-                        parts = spmd.all_gather(parts, e, dim, mesh,
-                                                label=STOPGAP)
-                state[k] = parts
-            state = _lane_dicts(state)
-
-        def run(wl, x, st):
-            if mixer == "mamba":
-                return mamba_apply(
-                    wl, x, cfg.mamba, DISABLED, state=st,
-                    chunk=x.shape[1] if self.unroll else 256,
-                    scan_dtype=self.ssm_dtype)
-            if mixer == "mlstm":
-                return mlstm_apply(wl, x, cfg.num_heads, cfg.xlstm,
-                                   DISABLED, state=st)
-            return slstm_apply(wl, x, cfg.num_heads, DISABLED, state=st)
-        a, st = spmd.lanewise(run, w, h, state)
-        if cache is not None:
-            cache[mixer] = {k: _cut(spmd.lanewise(lambda s: s[k], st), t)
-                            for k, t in cache[mixer].items()}
-        return a
-
-
-STOPGAP = "Mamba and xLSTM weights and states gathered over 'model'"
-
 
 def _lane_dicts(tree: dict) -> np.ndarray:
     """{key: lanes array or ``spmd.Lanes``} -> a lanes array of dicts."""
@@ -761,26 +735,6 @@ def _lane_dicts(tree: dict) -> np.ndarray:
     for idx in np.ndindex(shape):
         out[idx] = {k: v[idx] for k, v in parts.items()}
     return out
-
-
-def _cut(full, like: spmd.Lanes) -> spmd.Lanes:
-    """Lanes holding a state whole on its non-batch dims -> cut to
-    ``like``'s layout, each lane's part a copy of its own."""
-    mesh = like.mesh
-    out = np.empty(full.shape, dtype=object)
-    for idx, pos in spmd._lanes(mesh):
-        t = full[idx]
-        for dim, e in enumerate(like.spec):
-            axes = _axes_tuple(e)
-            if not axes or dim == 0:
-                continue
-            n = math.prod(mesh.shape[a] for a in axes)
-            size = t.shape[dim] // n
-            t = t.narrow(dim, spmd._linear(pos, mesh, axes) * size, size)
-        out[idx] = t
-    return spmd.Lanes(spmd.own(out) if any(
-        e is not None for e in like.spec[1:]) else out, like.spec, mesh,
-        like.shape, like.dtype)
 
 
 class _Root:

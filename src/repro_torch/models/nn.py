@@ -350,3 +350,109 @@ def lane_weights(module: nn.Module, ctx: ShardCtx, target=None, *,
 def split_over_model(spec: P, dim: int) -> bool:
     """Whether ``spec`` splits ``dim`` over the 'model' axis."""
     return dim < len(spec) and "model" in _axes_tuple(spec[dim])
+
+
+def model_split(w, ctx: ShardCtx, dim: int) -> bool:
+    """Whether a layer computes on its lane's 'model' slice of ``w``'s
+    ``dim`` (the rules split it there)."""
+    return split_over_model(dense_spec(spec_of(w, ctx), ctx), dim)
+
+
+# --------------------------------------------------------------------------
+# the recurrent blocks' activations and states on lanes
+# --------------------------------------------------------------------------
+# the label of the 'model' collectives Mamba, mLSTM and sLSTM run on
+# activations and states (never on a weight): counted apart from the
+# FSDP rule's
+RECURRENT = "recurrent activations and states regrouped over 'model'"
+
+
+def model_index(mesh) -> np.ndarray:
+    """Each lane's index along 'model' (0 on a mesh without it)."""
+    if "model" not in mesh.axis_names:
+        return np.zeros(mesh.devices.shape, dtype=np.int64)
+    return spmd.axis_index(mesh, "model")
+
+
+def model_lanes(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def own_slice(t: torch.Tensor, dim: int, m, n: int) -> torch.Tensor:
+    """Lane ``m``'s slice of ``t``'s ``dim`` cut ``n`` ways."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, int(m) * size, size)
+
+
+def regroup_halves(y: np.ndarray, weight_split: bool, own: bool,
+                   ctx: ShardCtx) -> tuple[np.ndarray, np.ndarray]:
+    """The output of ``x @ w`` for a ``w`` whose columns are two halves
+    ``[a | b]`` side by side (Mamba's ``in_proj``, the xLSTM ``up``s), on
+    lanes: each lane holds its block of the columns when ``w`` is split
+    over 'model' (``weight_split``), else all of them.  -> (a, b), each
+    lane's own 1/tp of each half's columns (``own``), else the whole
+    halves.  With two 'model' lanes each holds one half, and one
+    ``all_to_all`` hands each lane its columns of both; with more, the
+    halves span several lanes unevenly, and an ``all_gather`` makes them
+    whole before the lane takes its columns."""
+    mesh = ctx.mesh
+    tp = model_lanes(mesh)
+    last = y.flat[0].dim() - 1
+    if weight_split and own and tp == 2:
+        y = spmd.all_to_all(y, "model", last, last, mesh, label=RECURRENT)
+        return spmd.lanewise(lambda t: tuple(t.chunk(2, dim=-1)), y)
+    if weight_split:
+        y = spmd.all_gather(y, "model", last, mesh, label=RECURRENT)
+
+    def halves(t, m):
+        a, b = t.chunk(2, dim=-1)
+        if not own:
+            return a, b
+        return own_slice(a, -1, m, tp), own_slice(b, -1, m, tp)
+    return spmd.lanewise(halves, y, model_index(mesh))
+
+
+def _model_dim(spec: P) -> int | None:
+    return next((d for d, e in enumerate(spec)
+                 if "model" in _axes_tuple(e)), None)
+
+
+def state_in(state: spmd.Lanes, dim: int, own: bool,
+             ctx: ShardCtx) -> np.ndarray:
+    """A recurrent state's parts as its layer computes on them: each
+    lane's own slice of ``dim`` (its channels or heads) when ``own``,
+    else whole over 'model'; from the cache's layout (``cache_spec``),
+    which may split another dim over 'model' (Mamba's conv state, its
+    time axis) or none."""
+    mesh = ctx.mesh
+    have, want = _model_dim(state.spec), (dim if own else None)
+    parts = state.parts
+    if have == want:
+        return parts
+    if have is None:
+        tp = model_lanes(mesh)
+        return spmd.lanewise(lambda t, m: own_slice(t, want, m, tp), parts,
+                             model_index(mesh))
+    if want is None:
+        return spmd.all_gather(parts, "model", have, mesh, label=RECURRENT)
+    return spmd.all_to_all(parts, "model", want, have, mesh,
+                           label=RECURRENT)
+
+
+def state_out(state: spmd.Lanes, new: np.ndarray, dim: int, own: bool,
+              ctx: ShardCtx) -> None:
+    """``state_in``'s inverse: the new state, laid out as the layer
+    computed it, written into the cache's parts in place."""
+    mesh = ctx.mesh
+    have, want = _model_dim(state.spec), (dim if own else None)
+    if have != want:
+        if want is None:
+            tp = model_lanes(mesh)
+            new = spmd.lanewise(lambda t, m: own_slice(t, have, m, tp), new,
+                                model_index(mesh))
+        elif have is None:
+            new = spmd.all_gather(new, "model", want, mesh, label=RECURRENT)
+        else:
+            new = spmd.all_to_all(new, "model", have, want, mesh,
+                                  label=RECURRENT)
+    spmd.lanewise(lambda part, t: part.copy_(t), state.parts, new)

@@ -36,12 +36,13 @@ difference named and held to its exact count:
   size, through nested calls, a ``scan`` body times its length and a
   ``shard_map`` body times its manual lanes), the ops
   ``FlopCounterMode`` counts: the port's ``flops_global`` (one lane's
-  step, traced, times the lanes) equals it, but for one difference: the
-  Mamba and xLSTM blocks compute replicated over 'model' on every lane
-  (the port's stopgap), which adds (tp - 1) times their FLOPs over the
-  global batch (``_replicated_mixer_flops``);
-* all-to-all bytes: the MoE layers' ``dist.spmd.all_to_all`` bytes equal
-  a hand count.  The reference's are twice those plus a constant: XLA's
+  step, traced, times the lanes) equals it exactly, the Mamba and xLSTM
+  blocks included (tensor parallel over 'model', each product computed
+  once over the lanes);
+* all-to-all bytes: the Mamba and mLSTM blocks' regrouping all-to-alls
+  (labelled ``nn.RECURRENT``) equal a hand count, and so do the MoE
+  layers' ``dist.spmd.all_to_all`` bytes, the rest.  The reference's are
+  twice the MoE's plus a constant: XLA's
   CPU backend moves a bfloat16 all-to-all as float32 (a convert before
   and after it in the HLO), and its partitioner adds resharding
   all-to-alls of its own (131,072 bytes on the train cells, 1,024 on the
@@ -359,39 +360,25 @@ def _a2a_by_hand(arch: str, shape, mesh_shape) -> int:
     return 2 * passes * n_moe * cfg.moe.num_experts * cap * cfg.d_model * 2
 
 
-def _replicated_mixer_flops(arch: str, shape, mesh_shape) -> int:
-    """The FLOPs the Mamba and xLSTM blocks add on a mesh: each lane runs
-    them on its data shard's batch, replicated over the 'model' lanes
-    (the stopgap), so the mesh does (tp - 1) more copies of their work
-    over the global batch than the reference's global program counts.
-    Counted by ``FlopCounterMode`` around the blocks' functions in the
-    no-mesh trace of the same cell (forward only: the cells are serving
-    cells)."""
-    from repro_torch.models import model as model_mod
-
+def _regroup_a2a_by_hand(arch: str, shape, mesh_shape) -> int:
+    """The Mamba and mLSTM blocks' all-to-all bytes a lane receives
+    (``nn.RECURRENT``): with two 'model' lanes, one a layer a pass,
+    regrouping ``in_proj``'s or ``up``'s output [B_local, S, 2 di / tp]
+    to each lane's channels of both halves (the sLSTM's ``up`` output,
+    whose halves the lanes do not split, is gathered instead)."""
     cfg = get_config(arch).reduced()
-    if cfg.mamba is None and cfg.xlstm is None:
+    tp = mesh_shape[-1]
+    if tp != 2 or shape.kind != "decode":
         return 0
-    assert shape.kind != "train"
-    total = [0]
-
-    def counted(fn):
-        def run(*a, **kw):
-            with FlopCounterMode(display=False) as fc:
-                out = fn(*a, **kw)
-            total[0] += fc.get_total_flops()
-            return out
-        return run
-    saved = {n: getattr(model_mod, n) for n in
-             ("mamba_apply", "mlstm_apply", "slstm_apply")}
-    try:
-        for n, fn in saved.items():
-            setattr(model_mod, n, counted(fn))
-        trace_cell(cfg, shape, None, unroll=False, opt_name="adamw")
-    finally:
-        for n, fn in saved.items():
-            setattr(model_mod, n, fn)
-    return (mesh_shape[-1] - 1) * total[0]
+    dp = math.prod(mesh_shape[:-1])
+    n = 0
+    for block in Model(cfg, device="meta").layers:
+        mixer = block.desc[0]
+        if mixer == "mamba":
+            n += block.mamba.in_proj.shape[1]
+        elif mixer == "mlstm":
+            n += block.mlstm.up.shape[1]
+    return shape.global_batch // dp * n // tp * 2
 
 
 @pytest.mark.parametrize("arch,shape_name", CELLS)
@@ -400,13 +387,16 @@ def test_reduced_cell_matches_reference(ref, arch, shape_name):
     assert want["ok"]
     cfg = get_config(arch).reduced()
     shape = small(shape_name)
-    rec = analyze(trace_cell(cfg, shape, cpu_mesh((2, 2)), unroll=False,
-                             opt_name="adamw"))
+    traced = trace_cell(cfg, shape, cpu_mesh((2, 2)), unroll=False,
+                        opt_name="adamw")
+    rec = analyze(traced)
     assert_memory_matches(rec, want, arch, shape)
-    assert rec["flops_global"] == want["matmul_flops"] + \
-        _replicated_mixer_flops(arch, shape, (2, 2))
+    assert rec["flops_global"] == want["matmul_flops"]
     assert rec["flops"] == rec["flops_global"] / 4
-    a2a = rec["collectives"].get("all-to-all", 0)
+    regroup = sum(v for k, v in traced.labelled.items()
+                  if k.startswith("all-to-all:"))
+    assert regroup == _regroup_a2a_by_hand(arch, shape, (2, 2))
+    a2a = rec["collectives"].get("all-to-all", 0) - regroup
     want_a2a = want["collectives"].get("all-to-all", 0)
     assert a2a == _a2a_by_hand(arch, shape, (2, 2))
     # float32 on XLA's CPU backend, and its own resharding all-to-alls on

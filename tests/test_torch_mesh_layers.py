@@ -11,7 +11,9 @@ bf16 rounded at every operation, as the port rounds it):
 
 The first three write ``{part}.npz``: each case's weights
 (``w.<case>.<path>``), its inputs and the reference's outputs (the
-layers, gradients and decodes; half the forward cases each).  ``cli``
+layers, two archs' gradients and the decodes; then each half the 2 x 2
+forward cases and one more arch's gradients, beside the recurrent
+blocks or the 1 x 8 forward).  ``cli``
 runs ``python -m repro.launch.train --mesh 2x2`` with a checkpoint at
 step 3 and writes its losses.  The port computes the same in this process, on
 ``["cpu"] * n`` lanes, with the reference's weights
@@ -28,14 +30,21 @@ Cases and tolerances (float32 unless named):
 - ``flash_decode_sharded`` on data = 4 and on 2 x 2, with random values
   past ``kv_len`` in the cache, ``kv_len`` one past the query's position
   and below it: ``atol = rtol = 1e-5``.
+- ``mamba_lanes``, ``mlstm_lanes`` and ``slstm_lanes`` on 2 x 2 (tensor
+  parallel over 'model'), a prefill and one decode step with state,
+  against ``mamba_apply``/``mlstm_apply``/``slstm_apply`` under the
+  reference's mesh context: outputs and final states to ``atol = rtol
+  = 1e-5``.
 - whole models on 2 x 2, the ten archs' forward logits, the MoE archs in
   every EP mode and kimi with capacity factor 1.0: ``atol = rtol = 1e-4``
-  (``tests/test_torch_models.py``'s float32 bound); gemma-2b's prefill
-  and decode on 2 x 2 (its one KV head repeated to two); long-context
-  prefill and decode on (data 4, model 1): the same bound.
-- the loss and gradients of mixtral and kimi on 2 x 2: ``rtol = 1e-4``,
-  and ``atol = 1e-4`` times the leaf's largest |gradient|
-  (``tests/test_torch_train.py``'s).
+  (``tests/test_torch_models.py``'s float32 bound); reduced xlstm on
+  (data 1, model 8), whose 4 heads 'model' does not split; gemma-2b's,
+  jamba's and xlstm's prefill and decode on 2 x 2 (gemma's one KV head
+  repeated to two); long-context prefill and decode on (data 4, model
+  1): the same bound.
+- the loss and gradients of mixtral, kimi, jamba and xlstm on 2 x 2:
+  ``rtol = 1e-4``, and ``atol = 1e-4`` times the leaf's largest
+  |gradient| (``tests/test_torch_train.py``'s).
 - the CLI, bf16: the port resumes the reference's step-3 checkpoint with
   ``--mesh 2x2 --device cpu`` and logs steps 4 to 6; each loss to
   ``rtol = 2e-3``, ``test_torch_train.py``'s bf16 trajectory bound (a
@@ -43,6 +52,7 @@ Cases and tolerances (float32 unless named):
   the updates), beside the 5e-5 of the 4-decimal print.
 """
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -69,12 +79,16 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.dist.context import make_rules
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import make_batch
+from repro_torch.dist import spmd
+from repro_torch.dist.context import P
 from repro_torch.models import attention as p_att
 from repro_torch.models import moe as p_moe
+from repro_torch.models import ssm as p_ssm
+from repro_torch.models import xlstm as p_xlstm
 from repro_torch.models.convert import (load_reference_params,
                                         reference_leaves, to_tensor)
-from repro_torch.models.model import Model
-from repro_torch.models.nn import Init
+from repro_torch.models.model import Model, cache_spec
+from repro_torch.models.nn import Init, assign, model_split
 
 REPO = Path(__file__).resolve().parents[1]
 F32 = dict(atol=1e-5, rtol=1e-5)
@@ -96,7 +110,14 @@ FWD_CASES = ([(f"fwd-{a}", a, None, {}) for a in ARCH_IDS]
                 for m, kw in (("replicated", {"ep_mode": "replicated"}),
                               ("serve2d", {"serve_fsdp": False}))]
              + [("fwd-kimi-k2-1t-a32b-drops", "kimi-k2-1t-a32b", 1.0, {})])
-GRAD_ARCHS = ("mixtral-8x22b", "kimi-k2-1t-a32b")
+GRAD_ARCHS = ("mixtral-8x22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
+              "xlstm-1.3b")
+# the recurrent blocks' lane functions, each in its arch's reduced config
+REC_ARCHS = {"mamba": "jamba-v0.1-52b", "mlstm": "xlstm-1.3b",
+             "slstm": "xlstm-1.3b"}
+SERVE_ARCHS = ("gemma-2b", "jamba-v0.1-52b", "xlstm-1.3b")
+# reduced xlstm's 4 heads on 8 'model' lanes: the heads do not split
+UNEVEN = ("fwd1x8-xlstm-1.3b", "xlstm-1.3b", (1, 8))
 LONG_ARCHS = ("gemma-2b", "jamba-v0.1-52b", "kimi-k2-1t-a32b")
 B, S, PROMPT, STEPS = 4, 16, 16, 3
 KV_LENS = (21, 17)  # a decode at position 20: the cache's fill, and less
@@ -186,8 +207,41 @@ def reference_layers(out: dict) -> None:
             out[f"decode.{name}.{kv_len}"] = np.asarray(got)
 
 
-def reference_forwards(out: dict, cases) -> None:
+def reference_recurrent(out: dict) -> None:
+    from repro.models import ssm as r_ssm
+    from repro.models import xlstm as r_xlstm
     mesh = _ref_mesh("a2a")
+    for kind, arch in REC_ARCHS.items():
+        cfg = model_config(arch, None, ref_config)
+        d, H = cfg.d_model, cfg.num_heads
+        ctx = ref_rules(mesh, cfg)
+        kg = r_nn.KeyGen(jax.random.PRNGKey(5))
+        if kind == "mamba":
+            p = r_ssm.init_mamba(kg, d, cfg.mamba, jnp.float32)
+            fn = jax.jit(lambda p, x, st: r_ssm.mamba_apply(
+                p, x, cfg.mamba, ctx, state=st))
+        elif kind == "mlstm":
+            p = r_xlstm.init_mlstm(kg, d, H, cfg.xlstm, jnp.float32)
+            fn = jax.jit(lambda p, x, st: r_xlstm.mlstm_apply(
+                p, x, H, cfg.xlstm, ctx, state=st))
+        else:
+            p = r_xlstm.init_slstm(kg, d, H, cfg.xlstm, jnp.float32)
+            fn = jax.jit(lambda p, x, st: r_xlstm.slstm_apply(
+                p, x, H, ctx, state=st))
+        x = np.random.default_rng(4).standard_normal(
+            (B, S + 1, d)).astype(np.float32)
+        y, st = fn(p, jnp.asarray(x[:, :S]), None)
+        y1, st = fn(p, jnp.asarray(x[:, S:]), st)
+        case = f"rec-{kind}"
+        out.update(flat(r_nn.split_params(p)[0], f"w.{case}."))
+        out.update(flat(st, f"st.{case}."))
+        out[f"in.{case}"] = x
+        out[f"y.{case}"] = np.asarray(jnp.concatenate([y, y1], axis=1))
+
+
+def reference_forwards(out: dict, cases, shape=(2, 2)) -> None:
+    mesh = jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
     for case, arch, cf, kw in cases:
         cfg = model_config(arch, cf, ref_config)
         m = ref_build(cfg, ref_rules(mesh, cfg, **kw), remat=False)
@@ -205,9 +259,9 @@ def reference_forwards(out: dict, cases) -> None:
                                                      np.asarray(aux))
 
 
-def reference_models(out: dict) -> None:
+def reference_grads(out: dict, archs) -> None:
     mesh = _ref_mesh("a2a")
-    for arch in GRAD_ARCHS:
+    for arch in archs:
         cfg = model_config(arch, None, ref_config)
         m = ref_build(cfg, ref_rules(mesh, cfg))
         params = m.init(jax.random.PRNGKey(0))
@@ -219,7 +273,10 @@ def reference_models(out: dict) -> None:
         out.update(flat(r_nn.split_params(params)[0], f"w.grad-{arch}."))
         out.update(flat(r_nn.split_params(grads)[0], f"g.grad-{arch}."))
         out[f"loss.grad-{arch}"] = np.asarray(loss)
-    cases = [("serve-gemma-2b", "gemma-2b", (2, 2), False)] + [
+
+
+def reference_decodes(out: dict) -> None:
+    cases = [(f"serve-{a}", a, (2, 2), False) for a in SERVE_ARCHS] + [
         (f"long-{a}", a, (4, 1), True) for a in LONG_ARCHS]
     for case, arch, shape, long in cases:
         cfg = model_config(arch, None, ref_config)
@@ -332,6 +389,58 @@ def test_flash_decode_sharded_matches_reference(reference, mesh_shape,
                                **F32)
 
 
+REC_STATES = {"mamba": ("conv", "ssm"), "mlstm": ("C", "n", "m"),
+              "slstm": ("c", "n", "h", "m")}
+
+
+@pytest.mark.parametrize("kind", list(REC_ARCHS))
+def test_recurrent_lanes_match_reference(reference, kind):
+    """``mamba_lanes``, ``mlstm_lanes`` and ``slstm_lanes`` on 2 x 2,
+    tensor parallel over 'model', against the reference's
+    ``mamba_apply``/``mlstm_apply``/``slstm_apply`` under its mesh
+    context: a 16-step prefill from the cache's zero state, then one
+    decode step, the outputs and the final state (laid out as
+    ``cache_spec`` lays it out, updated in place)."""
+    _, ref = reference
+    case = f"rec-{kind}"
+    cfg = model_config(REC_ARCHS[kind], None)
+    mesh = make_mesh((2, 2), ("data", "model"), devices="cpu")
+    ctx = make_rules(mesh, cfg)
+    init = Init(torch.device("cpu"), ctx=ctx)
+    d, H, f32 = cfg.d_model, cfg.num_heads, torch.float32
+    if kind == "mamba":
+        mod = p_ssm.Mamba(init, d, cfg.mamba, f32)
+        whole = p_ssm.init_mamba_state(cfg, B, f32, "cpu")
+        run = functools.partial(p_ssm.mamba_lanes, mc=cfg.mamba)
+    elif kind == "mlstm":
+        mod = p_xlstm.MLSTM(init, d, H, cfg.xlstm, f32)
+        di = mod.ogate.shape[1]
+        whole = p_xlstm.init_mlstm_state(B, H, di // H, "cpu")
+        run = functools.partial(p_xlstm.mlstm_lanes, num_heads=H,
+                                xc=cfg.xlstm)
+    else:
+        mod = p_xlstm.SLSTM(init, d, H, cfg.xlstm, f32)
+        whole = p_xlstm.init_slstm_state(B, d, "cpu")
+        run = functools.partial(p_xlstm.slstm_lanes, num_heads=H)
+    for name, v in flat(nest(ref, f"w.{case}."), "").items():
+        assign(getattr(mod, name), to_tensor(v))
+    cache = {k: spmd.Lanes.split(t, cache_spec(kind, k, t.shape, cfg, ctx),
+                                 mesh) for k, t in whole.items()}
+    x = torch.from_numpy(ref[f"in.{case}"])
+    ys = []
+    with torch.no_grad():
+        for sl in (slice(0, S), slice(S, S + 1)):
+            xl = spmd.shard(x[:, sl].contiguous(), P("data"), mesh)
+            ys.append(spmd.unshard(run(mod, xl, ctx=ctx, cache=cache),
+                                   P("data"), mesh))
+    np.testing.assert_allclose(torch.cat(ys, 1).numpy(), ref[f"y.{case}"],
+                               **F32, err_msg=case)
+    assert set(cache) == set(REC_STATES[kind])
+    for k, t in cache.items():
+        np.testing.assert_allclose(t.full().numpy(), ref[f"st.{case}.{k}"],
+                                   **F32, err_msg=f"{case} state {k}")
+
+
 # --------------------------------------------------------------------------
 # whole models
 # --------------------------------------------------------------------------
@@ -359,6 +468,27 @@ def test_forward_on_2x2_matches_reference(reference, case, arch, cf, kw):
                                **MODEL_TOL, err_msg=case)
     np.testing.assert_allclose(float(aux), float(ref[f"aux.{case}"]),
                                rtol=1e-5, atol=1e-6, err_msg=case)
+
+
+def test_uneven_heads_forward_on_1x8_matches_reference(reference):
+    """Reduced xlstm on (data 1 x model 8): 'model' splits the channels
+    but not the 4 heads, so the mLSTM and sLSTM lanes gather their heads'
+    inputs and run the recurrences replicated (their docstrings)."""
+    _, ref = reference
+    case, arch, shape = UNEVEN
+    cfg = model_config(arch, None)
+    ctx = make_rules(make_mesh(shape, ("data", "model"), devices="cpu"),
+                     cfg)
+    model = port_model(ref, case, cfg, ctx)
+    blocks = {b.desc[0]: b for b in model.layers}
+    assert model_split(blocks["mlstm"].mlstm.ogate, ctx, 1)
+    assert not model_split(blocks["mlstm"].mlstm.wi, ctx, 1)
+    assert model_split(blocks["slstm"].slstm.wx, ctx, 2)
+    assert not model_split(blocks["slstm"].slstm.r, ctx, 0)
+    with torch.no_grad():
+        logits, _ = model(torch_batch(tokens_for(cfg, S)))
+    np.testing.assert_allclose(logits.numpy(), ref[f"logits.{case}"],
+                               **MODEL_TOL, err_msg=case)
 
 
 @pytest.mark.parametrize("arch", GRAD_ARCHS)
@@ -391,12 +521,14 @@ def test_loss_and_gradients_on_2x2_match_reference(reference, arch):
             err_msg=f"{arch} {leaf.path}")
 
 
-@pytest.mark.parametrize("case", ["serve-gemma-2b"] +
+@pytest.mark.parametrize("case", [f"serve-{a}" for a in SERVE_ARCHS] +
                          [f"long-{a}" for a in LONG_ARCHS])
 def test_prefill_and_decode_on_a_mesh_match_reference(reference, case):
-    """gemma-2b on 2 x 2 (its KV head repeated to 2 in the caches), and
-    long-context decode on (data 4, model 1): the caches' 24 slots split
-    6 a lane, the last lane all empty at the first decode step."""
+    """gemma-2b on 2 x 2 (its KV head repeated to 2 in the caches),
+    jamba and xlstm on 2 x 2 (their recurrent states tensor parallel
+    over 'model'), and long-context decode on (data 4, model 1): the
+    caches' 24 slots split 6 a lane, the last lane all empty at the
+    first decode step."""
     _, ref = reference
     arch = case.split("-", 1)[1]
     long = case.startswith("long")
@@ -414,7 +546,7 @@ def test_prefill_and_decode_on_a_mesh_match_reference(reference, case):
             logits, caches = model.decode_step(
                 caches, toks[:, PROMPT + i:PROMPT + i + 1], PROMPT + i)
             seq.append(logits)
-    if not long:  # gemma-2b's one KV head, repeated for model = 2
+    if case == "serve-gemma-2b":  # its one KV head, repeated for model = 2
         assert caches[0]["attn"]["k"].shape[2] == 2
     np.testing.assert_allclose(torch.cat(seq, 1).numpy(),
                                ref[f"logits.{case}"], **MODEL_TOL,
@@ -456,7 +588,15 @@ if __name__ == "__main__":
         result: dict = {}
         if part == "layers":
             reference_layers(result)
-            reference_models(result)
+            reference_grads(result, GRAD_ARCHS[:2])
+            reference_decodes(result)
+        elif part == "fwd0":
+            reference_forwards(result, FWD_CASES[0::2])
+            reference_recurrent(result)
+            reference_grads(result, GRAD_ARCHS[2:3])
         else:
-            reference_forwards(result, FWD_CASES[int(part[-1])::2])
+            reference_forwards(result, FWD_CASES[1::2])
+            reference_forwards(result, [(UNEVEN[0], UNEVEN[1], None, {})],
+                               UNEVEN[2])
+            reference_grads(result, GRAD_ARCHS[3:])
         np.savez(out_dir / f"{part}.npz", **result)

@@ -24,14 +24,14 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.dist import spmd
-from repro_torch.dist.context import P, make_rules
+from repro_torch.dist.context import P, _axes_tuple, make_rules
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.shapes import SHAPES
 from repro_torch.models.convert import (load_reference_params,
                                         reference_leaves, to_reference)
 from repro_torch.models.model import Model
-from repro_torch.models.nn import ShardedParameter, named_weights
+from repro_torch.models.nn import RECURRENT, ShardedParameter, named_weights
 from repro_torch.train import OptConfig, make_init_state
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import apply_updates
@@ -321,6 +321,110 @@ def test_sharded_checkpoint_is_the_unsharded_file(tmp_path):
         for path, st in states[1].opt["ema"].items():
             for k, t in st.items():
                 assert torch.equal(restored.opt["ema"][path][k].full(), t)
+
+
+# --------------------------------------------------------------------------
+# the recurrent blocks, tensor parallel over 'model'
+# --------------------------------------------------------------------------
+RECURRENT_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b"])
+def test_recurrent_blocks_gather_no_weight_over_model(arch, monkeypatch):
+    """On 2 x 2 CPU lanes, a forward, a prefill and a decode step and a
+    loss's backward gather no Mamba, mLSTM or sLSTM weight over 'model':
+    each reaches its lanes through ``nn.gather_to`` with every 'model'
+    split kept (only its FSDP split over 'data' is gathered); the
+    'model' collectives they run carry ``nn.RECURRENT``.  Each lane's
+    recurrence runs on its own half: Mamba's scan on [B/2, S, di/2, N],
+    mLSTM's on H/2 heads, sLSTM's steps on d/2 channels."""
+    from repro_torch.models import nn as nnm
+    from repro_torch.models import ssm, xlstm
+
+    cfg = f32(arch)
+    model = Model(cfg, ctx=make_rules(cpu_mesh((2, 2)), cfg), seed=0)
+    mine = {id(w): name for name, w in named_weights(model)
+            if any(f".{m}." in name for m in RECURRENT_MIXERS)}
+    gathered = {}
+    real = nnm.gather_to
+
+    def spy(w, target, ctx, **kw):
+        if id(w) in mine:
+            gathered[mine[id(w)]] = (tuple(w.spec), tuple(target))
+        return real(w, target, ctx, **kw)
+    monkeypatch.setattr(nnm, "gather_to", spy)
+    seen: dict = {}
+    for mod, name, arg in ((ssm, "_ssm_scan_chunked", 0),
+                           (xlstm, "_mlstm_chunked", 0),
+                           (xlstm, "_slstm_step", 0)):
+        def wrap(*a, _fn=getattr(mod, name), _name=name, _arg=arg, **kw):
+            seen.setdefault(_name, set()).add(tuple(a[_arg].shape))
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, wrap)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 17)))
+    with spmd.count_collectives() as counts:
+        with torch.no_grad():
+            model({"tokens": toks[:, :16]})
+            _, caches, _ = model.prefill({"tokens": toks[:, :16]}, 24)
+            model.decode_step(caches, toks[:, 16:], 16)
+        loss, _ = model.loss_fn({"tokens": toks[:, :16],
+                                 "targets": toks[:, 1:]})
+        loss.backward()
+    assert set(gathered) == set(mine.values())
+    for name, (spec, target) in gathered.items():
+        for dim, entry in enumerate(spec):
+            if "model" in _axes_tuple(entry):
+                assert "model" in _axes_tuple(target[dim]), (name, target)
+    labels = {k.split(": ", 1)[1] for k in counts.labelled}
+    assert nnm.RECURRENT in labels
+    # reduced jamba's MoE router is the one weight a layer gathers whole
+    assert labels <= {nnm.RECURRENT, nnm.TP_GATHER}
+    d = cfg.d_model
+    if arch == "jamba-v0.1-52b":
+        di, N = 2 * d, cfg.mamba.d_state
+        assert seen["_ssm_scan_chunked"] == {(2, 16, di // 2, N)}
+    else:
+        H, di = cfg.num_heads, int(d * cfg.xlstm.proj_factor_mlstm)
+        assert seen["_mlstm_chunked"] == {(2, 16, H // 2, di // H)}
+        assert seen["_slstm_step"] == {(2, 4, d // 2)}
+
+
+def test_mamba_on_three_model_lanes_matches_no_mesh():
+    """Reduced jamba at d_model 48 on (data 1 x model 3), where 'model'
+    divides the conv state's time axis (d_conv - 1 = 3: ``cache_spec``
+    splits it there, the reference's rule) and di = 96: the conv state
+    goes time -> channels and back by all-to-all, and ``in_proj``'s
+    halves, over three lanes, are gathered before each lane takes its
+    channels.  Prefill and decode logits and the states against the
+    no-mesh model from the same seed."""
+    cfg = dataclasses.replace(f32("jamba-v0.1-52b"), d_model=48)
+    ctx = make_rules(cpu_mesh((1, 3)), cfg)
+    model = Model(cfg, ctx=ctx, seed=0)
+    base = Model(cfg, device="cpu", seed=0)
+    conv = next(c["mamba"]["conv"] for c in model.init_cache(2, 8)
+                if "mamba" in c)
+    assert tuple(conv.spec)[1] == "model"
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad(), spmd.count_collectives() as counts:
+        got, caches, _ = model.prefill({"tokens": toks[:, :8]}, 16)
+        want, ref_caches, _ = base.prefill({"tokens": toks[:, :8]}, 16)
+        for i in range(8, 12):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                       rtol=1e-5)
+            got, caches = model.decode_step(caches, toks[:, i:i + 1], i)
+            want, ref_caches = base.decode_step(ref_caches,
+                                                toks[:, i:i + 1], i)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    for c, r in zip(caches, ref_caches):
+        if "mamba" in c:
+            for k in ("conv", "ssm"):
+                np.testing.assert_allclose(c["mamba"][k].full().numpy(),
+                                           r["mamba"][k].numpy(), atol=1e-5,
+                                           rtol=1e-5)
+    assert counts.labelled["all-to-all: " + RECURRENT] > 0
 
 
 # --------------------------------------------------------------------------
